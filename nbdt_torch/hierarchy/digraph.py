@@ -1,0 +1,135 @@
+"""A minimal insertion-ordered directed graph with node-link JSON reading.
+
+Counterpart of ``nbdt_tpu/hierarchy/digraph.py``. Insertion order is
+load-bearing: a node's child order is its ``succ`` insertion order, which is
+the JSON ``links`` array order, and decision-path parity with the JAX package
+and the reference depends on it. So ``succ``/``pred`` are plain ordered dicts
+keyed by edge insertion.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, Iterator, List, Optional, Tuple
+
+
+class Digraph:
+    def __init__(self):
+        # node -> attr dict; insertion ordered
+        self._nodes: Dict[str, dict] = {}
+        # node -> {child: None} / {parent: None}; insertion ordered sets
+        self._succ: Dict[str, Dict[str, None]] = {}
+        self._pred: Dict[str, Dict[str, None]] = {}
+
+    def add_node(self, node: str, **attrs) -> None:
+        if node not in self._nodes:
+            self._nodes[node] = {}
+            self._succ[node] = {}
+            self._pred[node] = {}
+        self._nodes[node].update(attrs)
+
+    def add_edge(self, parent: str, child: str) -> None:
+        self.add_node(parent)
+        self.add_node(child)
+        self._succ[parent][child] = None
+        self._pred[child][parent] = None
+
+    @property
+    def nodes(self) -> List[str]:
+        return list(self._nodes)
+
+    def __contains__(self, node: str) -> bool:
+        return node in self._nodes
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._nodes)
+
+    def __len__(self) -> int:
+        return len(self._nodes)
+
+    def label(self, node: str) -> str:
+        return self._nodes[node].get("label", "")
+
+    def succ(self, node: str) -> List[str]:
+        return list(self._succ[node])
+
+    def pred(self, node: str) -> List[str]:
+        return list(self._pred[node])
+
+    def is_leaf(self, node: str) -> bool:
+        return len(self._succ[node]) == 0
+
+    def descendants(self, node: str) -> List[str]:
+        """All nodes reachable from ``node`` (exclusive), DFS preorder."""
+        seen, order, stack = set(), [], list(reversed(self.succ(node)))
+        while stack:
+            cur = stack.pop()
+            if cur in seen:
+                continue
+            seen.add(cur)
+            order.append(cur)
+            stack.extend(reversed(self.succ(cur)))
+        return order
+
+
+def get_leaves(G: Digraph, root: Optional[str] = None) -> Iterator[str]:
+    nodes = G.nodes if root is None else G.descendants(root) + [root]
+    for node in nodes:
+        if G.is_leaf(node):
+            yield node
+
+
+def get_roots(G: Digraph) -> Iterator[str]:
+    for node in G.nodes:
+        if len(G.pred(node)) == 0:
+            yield node
+
+
+def get_root(G: Digraph) -> str:
+    roots = list(get_roots(G))
+    assert len(roots) == 1, f"Multiple ({len(roots)}) roots found"
+    return roots[0]
+
+
+def get_depth(G: Digraph) -> int:
+    def _depth(node: str) -> int:
+        children = G.succ(node)
+        if not children:
+            return 1
+        return max(_depth(child) for child in children) + 1
+
+    return max(_depth(root) for root in get_roots(G))
+
+
+def get_leaf_to_path(G: Digraph) -> Dict[str, List[Tuple[int, str]]]:
+    """BFS from each root; per-leaf list of (child_index, node) pairs.
+
+    child_index is the node's index within its parent's children; the
+    root's index is 0. On a DAG the last BFS visit of a leaf wins.
+    """
+    leaf_to_path: Dict[str, List[Tuple[int, str]]] = {}
+    for root in get_roots(G):
+        frontier: List[Tuple[str, int, list]] = [(root, 0, [])]
+        while frontier:
+            node, child_index, path = frontier.pop(0)
+            path = path + [(child_index, node)]
+            if G.is_leaf(node):
+                leaf_to_path[node] = path
+                continue
+            frontier.extend((child, i, path) for i, child in enumerate(G.succ(node)))
+    return leaf_to_path
+
+
+def node_link_graph(data: dict) -> Digraph:
+    G = Digraph()
+    for entry in data.get("nodes", []):
+        attrs = {k: v for k, v in entry.items() if k != "id"}
+        G.add_node(entry["id"], **attrs)
+    for link in data.get("links", []):
+        G.add_edge(link["source"], link["target"])
+    return G
+
+
+def read_graph(path) -> Digraph:
+    with open(str(path)) as f:
+        return node_link_graph(json.load(f))

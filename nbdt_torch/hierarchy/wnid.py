@@ -1,0 +1,104 @@
+"""WordNet ID naming and wnid list reading.
+
+Counterpart of the naming half of ``nbdt_tpu/hierarchy/wnid.py``. A wnid is
+``<pos><offset:08d>`` (e.g. ``n02691156``). Names come from an installed
+mini-corpus, else from the NLTK WordNet corpus where it is installed, else
+from a :class:`FakeSynset` placeholder, exactly as in the JAX package. NLTK
+stays optional.
+"""
+
+from __future__ import annotations
+
+import os
+
+_WORDNET_CHECKED = False
+_WORDNET_AVAILABLE = False
+_MINI_CORPUS = None  # {wnid: {"name": str, ...}}
+
+
+def install_mini_corpus(table) -> None:
+    """Install a vendored mini WordNet, a dict (or JSON path) of
+    ``{wnid: {"name": ...}}``. It takes precedence over NLTK while
+    installed."""
+    global _MINI_CORPUS
+    if isinstance(table, (str, os.PathLike)):
+        import json
+
+        with open(table) as f:
+            table = json.load(f)
+    _MINI_CORPUS = dict(table)
+
+
+def clear_mini_corpus() -> None:
+    global _MINI_CORPUS
+    _MINI_CORPUS = None
+
+
+class MiniSynset:
+    """Synset backed by a mini-corpus table (naming surface only)."""
+
+    def __init__(self, wnid: str, table: dict):
+        self.wnid = wnid
+        self._table = table
+
+    def name(self) -> str:
+        return self._table[self.wnid]["name"]
+
+
+class FakeSynset:
+    """Placeholder synset for generated (non-WordNet) nodes, and for real
+    wnids when no corpus can resolve them."""
+
+    def __init__(self, wnid: str):
+        assert isinstance(wnid, str)
+        self.wnid = wnid
+
+    def name(self) -> str:
+        return "(generated)"
+
+
+def wordnet_available() -> bool:
+    """True if a mini-corpus is installed or NLTK's WordNet corpus loads."""
+    global _WORDNET_CHECKED, _WORDNET_AVAILABLE
+    if _MINI_CORPUS is not None:
+        return True
+    if not _WORDNET_CHECKED:
+        _WORDNET_CHECKED = True
+        try:
+            from nltk.corpus import wordnet as wn
+
+            wn.synset_from_pos_and_offset("n", 2691156)  # 'airplane'
+            _WORDNET_AVAILABLE = True
+        except Exception:  # no nltk, or no corpus: degrade to FakeSynset
+            _WORDNET_AVAILABLE = False
+    return _WORDNET_AVAILABLE
+
+
+def wnid_to_synset(wnid: str):
+    if wnid.startswith("f"):
+        return FakeSynset(wnid)
+    if _MINI_CORPUS is not None:
+        if wnid in _MINI_CORPUS:
+            return MiniSynset(wnid, _MINI_CORPUS)
+        return FakeSynset(wnid)
+    if not wordnet_available():
+        return FakeSynset(wnid)
+    from nltk.corpus import wordnet as wn
+
+    try:
+        return wn.synset_from_pos_and_offset(wnid[0], int(wnid[1:]))
+    except Exception:  # offset unknown to the corpus
+        return FakeSynset(wnid)
+
+
+def synset_to_name(synset) -> str:
+    return synset.name().split(".")[0]
+
+
+def wnid_to_name(wnid: str) -> str:
+    return synset_to_name(wnid_to_synset(wnid))
+
+
+def get_wnids(path_wnids) -> list:
+    with open(str(path_wnids)) as f:
+        return [wnid.strip() for wnid in f.readlines() if wnid.strip()]

@@ -10,6 +10,7 @@ setup(
     package_data={
         "nbdt_tpu.native": ["*.cpp"],
         "nbdt_tpu": ["hierarchies/*/*.json", "wnids/*.txt"],
+        "nbdt_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     include_package_data=True,
     python_requires=">=3.10",
