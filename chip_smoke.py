@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py
 
-Drives soft-NBDT serving with ResNet18 on the CIFAR10 induced hierarchy at
-batch 8192 (seeded random weights) through the port's entry points, builds
-every hand-written kernel of that path from ``nbdt_torch/csrc/``, holds each
-against its plain PyTorch version, and times them with CUDA events. Exits
-nonzero, printing no result, when there is no CUDA device or any check
-fails. The last line is ``{"ok": true, "device": {...}}``; the line before it
-is the per-kernel JSON record.
+Drives the port's two serving paths through its entry points, with seeded
+random weights: soft-NBDT ResNet18 on the CIFAR10 induced hierarchy at batch
+8192, and soft-NBDT ViT-B/16 (224px, 1000 classes, bf16 stream, the fused
+LayerNorm kernel) on the Imagenet1000 induced hierarchy at batch 256. Builds
+every hand-written kernel from ``nbdt_torch/csrc/``, holds each against its
+plain PyTorch version, checks each path's launch counts and outputs, and
+times the kernels and requests with CUDA events. Exits nonzero, printing no
+result, when there is no CUDA device or any check fails. The last line is
+``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
+record.
 
-Phases: device, build, kernel vs plain, main path, serving fn, times.
+Phases: device, build, kernel vs plain (soft_head, layernorm), ResNet18 main
+path, its serving fn, ViT-B/16 main path, its f32 gate, its serving fn,
+times.
 """
 
 from __future__ import annotations
@@ -19,32 +24,44 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from nbdt_torch import SoftNBDT, make_serving_fn
-from nbdt_torch.data.transforms import CIFAR_MEAN, CIFAR_STD
+from nbdt_torch.data.transforms import CIFAR_MEAN, CIFAR_STD, IMAGENET_MEAN, IMAGENET_STD
 from nbdt_torch.hierarchy.digraph import Digraph
-from nbdt_torch.models import ResNet18
+from nbdt_torch.models import ResNet18, vit_b16
 from nbdt_torch.ops import _build
+from nbdt_torch.ops import layernorm as ln
 from nbdt_torch.ops import soft_traversal as st
 from nbdt_torch.tree import Tree
 
 BATCH = 8192  # the flagship serving batch (bench.py's)
 FEAT_DIM = 512  # ResNet18's pooled feature width
+VIT_BATCH = 256  # tools/probe_vit.py's batch
+VIT_IMG = 224
+VIT_DIM = 768
+VIT_CLASSES = 1000
+VIT_LN_PER_REQUEST = 25  # 2 per block x 12 blocks + the final LayerNorm
 REQUESTS = 3
 TIMED = 20
 # Published H100 SXM peaks (at a 700 W power limit): HBM bytes/s and f32
 # (non-tensor-core) FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# f32 tolerance of the kernel vs its plain version: both sum in f32 in
+# f32 tolerance of the head kernel vs its plain version: both sum in f32 in
 # different orders over D=512 products and up to 17 path steps.
 TOL = 1e-4
+# f32 tolerance of the LayerNorm kernel vs its plain version
+# (tests/test_vit_variants.py's): the two sum a row of D values in f32 in
+# different orders, and rsqrtf is within 2 ulp.
+LN_TOL = 2e-5
 
 
 def check(ok: bool, msg: str) -> None:
@@ -96,9 +113,23 @@ def time_cuda(fn, n: int = TIMED, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def wall_ms(fn, n: int = TIMED, warmup: int = 3) -> float:
+    """Host-clock ms per call over n calls ending in a synchronize: what a
+    caller waits, host overhead included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
 def profile_ms(fn, n: int = TIMED) -> tuple:
     """torch.profiler over n calls: (wall ms per call, {kernel name: device
-    ms per call}). The dict is empty if the profiler saw no device time."""
+    ms per call}, {aten op: device ms per call of the kernels it launched}).
+    The dicts are empty if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -109,12 +140,39 @@ def profile_ms(fn, n: int = TIMED) -> tuple:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    device = {}
+    device, ops = {}, {}
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0)
-        if us and e.device_type == torch.autograd.DeviceType.CUDA:
-            device[e.key] = us / n / 1e3
-    return wall, device
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
+            device[e.key] = e.self_device_time_total / n / 1e3
+        elif e.key.startswith("aten::") and e.self_device_time_total:
+            ops[e.key] = e.self_device_time_total / n / 1e3
+    return wall, device, ops
+
+
+def print_profile(label: str, wall: float, device: dict, ops: dict) -> None:
+    busy = sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[times] {label} under the profiler: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms (idle share {1 - busy / wall:.4f}); top kernels "
+          f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}; device ms by aten op "
+          f"{json.dumps({k: round(v, 4) for k, v in top_ops})}", flush=True)
+
+
+def ptxas_report(name: str) -> None:
+    """One line per kernel instance of a library: ptxas registers and spills."""
+    entry = None
+    for line in _build.build_logs.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spills = m.group(1), ""
+            continue
+        if entry and "spill" in line:
+            spills = line.strip()
+        if entry and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            print(f"[build] {name} {entry}: {regs} registers; {spills}", flush=True)
+            entry = None
 
 
 def head_inputs(ta, seed: int):
@@ -141,6 +199,17 @@ def head_bound_ms(hc: st.HeadConstants, B: int, D: int) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ln_bound_ms(x: torch.Tensor) -> tuple:
+    """Least time for the LayerNorm on an H100: x read once, y written once,
+    weight and bias read once, vs its f32 operations (sum, centre, square-
+    accumulate, scale, affine: 8 per element) at the f32 peak."""
+    D = x.shape[-1]
+    nbytes = 2 * x.numel() * x.element_size() + 2 * D * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 8 * x.numel() / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def randomize_batchnorm(model: torch.nn.Module, gen: torch.Generator) -> None:
     """Seeded BatchNorm affine and running statistics, so that random-init
     predictions spread over the classes."""
@@ -153,52 +222,31 @@ def randomize_batchnorm(model: torch.nn.Module, gen: torch.Generator) -> None:
                 m.running_var.uniform_(0.5, 1.5, generator=gen)
 
 
-def calibrate_classifier(model, x: torch.Tensor, gen: torch.Generator) -> None:
-    """Seeded classifier over standardized features. Random conv weights map
+def calibrate_classifier(model, classifier, x: torch.Tensor, gen: torch.Generator) -> None:
+    """Seeded classifier over standardized features. Random weights map
     every image to nearly the same pooled features, so a plain random head
     predicts one class for all; centring and scaling by a calibration
     batch's feature statistics spreads the logits like a trained head's."""
     with torch.no_grad():
         feats = model(x.permute(0, 3, 1, 2), features_only=True)
         mu, sd = feats.mean(0), feats.std(0) + 1e-6
-        C, D = model.linear.weight.shape
+        C, D = classifier.weight.shape
         w = torch.randn(C, D, generator=gen).to(x.device) * (3.0 / math.sqrt(D)) / sd
-        model.linear.weight.copy_(w)
-        model.linear.bias.copy_(-(w @ mu))
+        classifier.weight.copy_(w)
+        classifier.bias.copy_(-(w @ mu))
 
 
-def main() -> int:
-    # 1. Device
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
-              file=sys.stderr)
-        return 1
-    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"[device] {kind}, {count} device(s), torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
-    print(smi, flush=True)
-    print(f"[device] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+def variant(model, **kw):
+    """The same weights under other knobs (dtype, ln_impl), on the card."""
+    m = model.clone(**kw)
+    m.load_state_dict(model.state_dict())
+    return m.to("cuda").eval()
 
-    # 2. Build
-    t0 = time.perf_counter()
-    _build.build_all()
-    _build.load_library("soft_head")
-    print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in _build.build_logs.get("soft_head", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
 
-    # 3. Kernel vs plain, at B=8192, D=512
+def check_soft_head_kernel(trees: dict) -> float:
+    """B1 vs its plain version at B=8192, D=512 on four trees, f32 and bf16
+    W, aux on and off. Returns the largest leaf max-abs error."""
     max_err = 0.0
-    trees = {"CIFAR10": Tree("CIFAR10"), "CIFAR100": Tree("CIFAR100"),
-             "Imagenet1000": Tree("Imagenet1000"), "synthetic-K3": synthetic_tree()}
     for seed, (tname, tree) in enumerate(trees.items()):
         ta = tree.arrays
         feats, W, b = head_inputs(ta, seed)
@@ -232,9 +280,43 @@ def main() -> int:
                     check(bool((pads == st.NEG).all()), f"{case}: padded slots not -1e30")
                     line += f", logits err {lerr:.3g}, logp err {perr:.3g}"
                 print(line, flush=True)
-    del feats, got, want
+    return max_err
 
-    # 4. Main path: 3 requests of 8192 NHWC images through SoftNBDT(fused=True)
+
+def check_layernorm_kernel() -> dict:
+    """B2 vs its plain version: the ViT-B shape, an odd row count, and a row
+    too wide for registers (the streamed instance), f32 and bf16. Returns the
+    largest max-abs error per dtype."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for rows, D in ((VIT_BATCH * 197, VIT_DIM), (257, 384), (129, 4096)):
+        # residual-stream-like rows: a nonzero mean and spread per row
+        x = (torch.randn(rows, D, device="cuda", generator=g) * 2
+             + torch.randn(rows, 1, device="cuda", generator=g))
+        w = 1 + 0.1 * torch.randn(D, device="cuda", generator=g)
+        b = 0.1 * torch.randn(D, device="cuda", generator=g)
+        for dtype in errs:
+            xd = x.to(dtype)
+            got = ln.fused_layernorm(xd, w, b)
+            want = ln.layernorm_reference(xd, w, b)
+            torch.cuda.synchronize()
+            case = f"layernorm rows={rows} D={D} {str(dtype)[6:]}"
+            check(got.dtype == dtype and got.shape == xd.shape, f"{case}: dtype/shape")
+            check(bool(torch.isfinite(got).all()), f"{case}: non-finite output")
+            err = float((got.float() - want.float()).abs().max())
+            errs[dtype] = max(errs[dtype], err)
+            if dtype == torch.float32:
+                check(torch.allclose(got, want, rtol=LN_TOL, atol=LN_TOL),
+                      f"{case}: beyond rtol=atol={LN_TOL} (max-abs {err:.3g})")
+            else:
+                torch.testing.assert_close(got, want, msg=lambda m: f"{case}: {m}")
+            print(f"[kernel] {case}: max-abs err {err:.3g}", flush=True)
+    return errs
+
+
+def run_resnet_path(trees: dict) -> dict:
+    """ResNet18 main path (3 requests of 8192 through SoftNBDT(fused=True))
+    and its serving fn. Returns the launches and the request times."""
     gen = torch.Generator().manual_seed(0)
     torch.manual_seed(0)
     model = ResNet18(10)
@@ -242,17 +324,19 @@ def main() -> int:
     tree = trees["CIFAR10"]
     cgen = torch.Generator(device="cuda").manual_seed(1)
     model = model.to("cuda", memory_format=torch.channels_last).eval()
-    calibrate_classifier(model, torch.randn(1024, 32, 32, 3, device="cuda", generator=cgen), gen)
+    calibrate_classifier(model, model.linear,
+                         torch.randn(1024, 32, 32, 3, device="cuda", generator=cgen), gen)
     fused = SoftNBDT("CIFAR10", model, tree=tree, fused=True)
     plain = SoftNBDT("CIFAR10", model, tree=tree)
     requests = [torch.randn(BATCH, 32, 32, 3, device="cuda", generator=cgen)
                 for _ in range(REQUESTS)]
     torch.cuda.synchronize()
-    st.launches = 0
+    st.launches = ln.launches = 0
     outs = [fused(x) for x in requests]
     torch.cuda.synchronize()
-    launches = st.launches
-    check(launches == REQUESTS, f"soft_head launched {launches} times over {REQUESTS} requests")
+    launches = {"soft_head": st.launches, "layernorm": ln.launches}
+    check(launches == {"soft_head": REQUESTS, "layernorm": 0},
+          f"ResNet18 path launches {launches} over {REQUESTS} requests")
     for i, (x, out) in enumerate(zip(requests, outs)):
         ref = plain(x)
         check(out.shape == (BATCH, 10) and bool(torch.isfinite(out).all()),
@@ -265,12 +349,12 @@ def main() -> int:
         print(f"[main] request {i}: fused vs plain argmax {agree} ({ties} tie rows, "
               f"raw {raw}), max |prob diff| {float((out - ref).abs().max()):.3g}, "
               f"{classes} classes predicted", flush=True)
-    print(f"[main] soft_head launches over {REQUESTS} requests: {launches}", flush=True)
+    print(f"[main] launches over {REQUESTS} requests: {json.dumps(launches)}", flush=True)
     _, decisions = plain.forward_with_decisions(requests[0][:4])
     path = " -> ".join(f"{s['name']} ({s['prob']:.3f})" for s in decisions[0])
     print(f"[main] decision path of image 0: {path}", flush=True)
 
-    # 5. Serving fn: bf16 backbone, folded BN, uint8 input (reported, not gated)
+    # Serving fn: bf16 backbone, folded BN, uint8 input (reported, not gated)
     serve = make_serving_fn(model, tree, bf16=True, fold_bn=True, uint8_input=True)
     u8 = torch.randint(0, 256, (BATCH, 32, 32, 3), dtype=torch.uint8, device="cuda",
                        generator=cgen)
@@ -284,63 +368,266 @@ def main() -> int:
     print(f"[serving] bf16+fold_bn+uint8 vs f32 plain argmax agreement {serve_agree}",
           flush=True)
 
-    # 6. Times: the kernel at the main-path shape, L2-cold (4 rotating feats
-    # buffers, 67 MB > 50 MB of L2), its plain version, and ms per request.
-    ta = tree.arrays
-    rng = np.random.RandomState(7)
-    W = (rng.randn(FEAT_DIM, 10) / math.sqrt(FEAT_DIM)).astype(np.float32)
-    times = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        hc = st.prepare_head_constants(ta, W, None, dtype=dtype)
-        bufs = [torch.rand(BATCH, FEAT_DIM, device="cuda").to(dtype) for _ in range(4)]
-        it = itertools.count()
-        times[dtype] = {
-            "ms": time_cuda(lambda: st.fused_soft_head(bufs[next(it) % 4], hc, want_aux=False)),
-            "plain_ms": time_cuda(lambda: st.soft_head_reference(bufs[next(it) % 4], hc, False)),
-            "bound": head_bound_ms(hc, BATCH, FEAT_DIM),
-        }
-        wall, device = profile_ms(
-            lambda: st.fused_soft_head(bufs[next(it) % 4], hc, want_aux=False))
-        kernel = {k: v for k, v in device.items() if "soft_head" in k}
-        print(f"[times] soft_head W={str(dtype)[6:]}: events {times[dtype]['ms']:.5f} ms, "
-              f"profiler device {json.dumps(kernel)} ms, wall {wall:.5f} ms per call "
-              "under the profiler", flush=True)
-        sweep = {tb: round(time_cuda(lambda: st.fused_soft_head(
-            bufs[next(it) % 4], hc, block_b=tb, want_aux=False)), 5) for tb in (8, 16, 32, 64)}
-        print(f"[times] soft_head W={str(dtype)[6:]} ms by block_b: {json.dumps(sweep)}",
-              flush=True)
-        del bufs
     x = requests[0]
-    wall, device = profile_ms(lambda: fused(x), n=5)
-    busy = sum(device.values())
-    top = sorted(device.items(), key=lambda kv: -kv[1])[:5]
-    print(f"[times] fused request under the profiler: wall {wall:.3f} ms, device busy "
-          f"{busy:.3f} ms (idle share {1 - busy / wall:.4f}); top kernels "
-          f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}", flush=True)
+    print_profile("ResNet18 fused f32 request", *profile_ms(lambda: fused(x), n=5))
+    return {
+        "launches": launches,
+        "fused_ms_per_request": time_cuda(lambda: fused(x), n=10),
+        "plain_ms_per_request": time_cuda(lambda: plain(x), n=10),
+        "serving_bf16_folded_uint8_ms_per_request": time_cuda(lambda: serve(u8), n=10),
+    }
+
+
+def run_vit_path(tree: Tree) -> dict:
+    """ViT-B/16 main path: 3 requests of 256 images at 224px through
+    SoftNBDT(fused=True) with a bf16 stream and ln_impl="pallas", then the
+    f32 gate and the serving fn. Returns the launches and the request
+    times."""
+    torch.manual_seed(10)
+    gen = torch.Generator().manual_seed(11)
+    cgen = torch.Generator(device="cuda").manual_seed(12)
+    base = vit_b16(VIT_CLASSES, ln_impl="pallas").to("cuda").eval()  # f32 stream
+    calibrate_classifier(base, base.heads.head, torch.randn(
+        VIT_BATCH, VIT_IMG, VIT_IMG, 3, device="cuda", generator=cgen), gen)
+    bf16 = variant(base, dtype=torch.bfloat16)
+    fused = SoftNBDT("Imagenet1000", bf16, tree=tree, fused=True)
+    requests = [torch.randn(VIT_BATCH, VIT_IMG, VIT_IMG, 3, device="cuda", generator=cgen)
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    st.launches = ln.launches = 0
+    outs = [fused(x) for x in requests]
+    torch.cuda.synchronize()
+    launches = {"soft_head": st.launches, "layernorm": ln.launches}
+    want = {"soft_head": REQUESTS, "layernorm": VIT_LN_PER_REQUEST * REQUESTS}
+    check(launches == want, f"ViT path launches {launches} over {REQUESTS} requests, "
+                            f"expected {want}")
+    for i, out in enumerate(outs):
+        check(out.shape == (VIT_BATCH, VIT_CLASSES) and bool(torch.isfinite(out).all()),
+              f"ViT request {i}: bad output {tuple(out.shape)}")
+        dev = float((out.sum(1) - 1).abs().max())
+        check(dev < 1e-4, f"ViT request {i}: leaf probs sum to 1 only within {dev:.3g}")
+        classes = int(out.argmax(1).unique().numel())
+        print(f"[vit] request {i}: {classes} of {VIT_CLASSES} classes predicted, "
+              f"max |sum - 1| {dev:.3g}", flush=True)
+    print(f"[vit] launches over {REQUESTS} requests: {json.dumps(launches)}", flush=True)
+    plain = SoftNBDT("Imagenet1000", variant(base, dtype=torch.bfloat16, ln_impl="f32"),
+                     tree=tree)
+    _, decisions = plain.forward_with_decisions(requests[0][:2])
+    path = " -> ".join(f"{s['name']} ({s['prob']:.3f})" for s in decisions[0])
+    print(f"[vit] decision path of image 0 ({len(decisions[0])} steps): {path}", flush=True)
+
+    # f32 gate: the same weights in an f32 stream (TF32 off), kernels vs plain
+    x = requests[0]
+    f32_plain_nbdt = SoftNBDT("Imagenet1000", variant(base, ln_impl="f32"), tree=tree)
+    f32_fused = SoftNBDT("Imagenet1000", base, tree=tree, fused=True)(x)
+    f32_plain = f32_plain_nbdt(x)
+    agree, ties, raw = argmax_agreement(f32_fused.log(), f32_plain.log(), TOL)
+    print(f"[vit] f32 gate: pallas+fused vs f32-LN+plain argmax {agree} on decided rows "
+          f"({ties} tie rows within {TOL}, raw {raw}), max |leaf log-prob diff| "
+          f"{float((f32_fused.log() - f32_plain.log()).abs().max()):.3g}", flush=True)
+    check(agree == 1.0, f"ViT f32 gate: argmax agreement {agree}")
+    bf_agree = float((outs[0].argmax(1) == f32_plain.argmax(1)).float().mean())
+    print(f"[vit] bf16 pallas+fused vs f32-LN+plain f32 argmax agreement {bf_agree} "
+          "(reported, not gated: bf16 rounding on random weights)", flush=True)
+
+    # Serving fn: bf16, uint8 input, ImageNet normalize (reported, not gated)
+    serve = make_serving_fn(base, tree, bf16=True, uint8_input=True,
+                            normalize=(IMAGENET_MEAN, IMAGENET_STD))
+    u8 = torch.randint(0, 256, (VIT_BATCH, VIT_IMG, VIT_IMG, 3), dtype=torch.uint8,
+                       device="cuda", generator=cgen)
+    mean = torch.as_tensor(IMAGENET_MEAN, device="cuda")
+    std = torch.as_tensor(IMAGENET_STD, device="cuda")
+    ln.launches = 0
+    served = serve(u8)
+    torch.cuda.synchronize()
+    serve_ln = ln.launches
+    check(served.shape == (VIT_BATCH, VIT_CLASSES) and bool(torch.isfinite(served).all()),
+          "ViT serving fn: bad output")
+    ref = f32_plain_nbdt((u8.float() / 255.0 - mean) / std)
+    print(f"[vit serving] bf16+uint8+ImageNet normalize vs f32 plain argmax agreement "
+          f"{float((served.argmax(1) == ref.argmax(1)).float().mean())}, "
+          f"layernorm launches {serve_ln}", flush=True)
+    del f32_plain_nbdt, f32_fused, f32_plain, ref, served
+
+    print_profile("ViT-B/16 bf16 pallas+fused request", *profile_ms(lambda: fused(x), n=5))
     fused_ms = time_cuda(lambda: fused(x))
     plain_ms = time_cuda(lambda: plain(x))
-    serve_ms = time_cuda(lambda: serve(u8))
+    # For the record, not a path of the port's kernels: the same request with
+    # attention_impl="jax" (PyTorch's fused attention in place of q @ k^T).
+    sdpa = SoftNBDT("Imagenet1000", variant(base, dtype=torch.bfloat16, attention_impl="jax"),
+                    tree=tree, fused=True)
+    print_profile("ViT-B/16 bf16 pallas+fused+sdpa request", *profile_ms(lambda: sdpa(x), n=5))
+    return {
+        "launches": launches,
+        "fused_ms_per_request": fused_ms,
+        "fused_wall_ms_per_request": wall_ms(lambda: fused(x)),
+        "plain_f32ln_ms_per_request": plain_ms,
+        "plain_f32ln_wall_ms_per_request": wall_ms(lambda: plain(x)),
+        "serving_bf16_uint8_ms_per_request": time_cuda(lambda: serve(u8)),
+        "fused_sdpa_ms_per_request": time_cuda(lambda: sdpa(x)),
+    }
+
+
+def time_layernorm() -> dict:
+    """B2 at the ViT-B shape (50,432 x 768), f32 and bf16: the kernel, its
+    plain version and F.layer_norm on the same tensors. Two rotating inputs
+    of 77-155 MB each, more than the 50 MB L2, so reads come from HBM.
+    F.layer_norm on CUDA refuses a bf16 input with an f32 affine, so for bf16
+    it gets bf16 copies of weight and bias (1.5 KB each; the same work)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = VIT_BATCH * 197
+    w = 1 + 0.1 * torch.randn(VIT_DIM, device="cuda", generator=g)
+    b = 0.1 * torch.randn(VIT_DIM, device="cuda", generator=g)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bufs = [torch.randn(rows, VIT_DIM, device="cuda", generator=g).to(dtype)
+                for _ in range(2)]
+        it = itertools.count()
+        t = {
+            "ms": time_cuda(lambda: ln.fused_layernorm(bufs[next(it) % 2], w, b)),
+            "plain_ms": time_cuda(lambda: ln.layernorm_reference(bufs[next(it) % 2], w, b)),
+            "library_ms": time_cuda(lambda: F.layer_norm(
+                bufs[next(it) % 2], (VIT_DIM,), w.to(dtype), b.to(dtype), 1e-6)),
+            "bound": ln_bound_ms(bufs[0]),
+        }
+        wall, device, _ = profile_ms(lambda: ln.fused_layernorm(bufs[next(it) % 2], w, b))
+        kernel = {k[:60]: v for k, v in device.items() if "layernorm" in k}
+        gbs = 2 * bufs[0].numel() * bufs[0].element_size() / t["ms"] / 1e6
+        print(f"[times] layernorm {str(dtype)[6:]} {rows}x{VIT_DIM}: kernel {t['ms']:.5f} ms "
+              f"({gbs:.1f} GB/s), plain {t['plain_ms']:.5f} ms, F.layer_norm "
+              f"{t['library_ms']:.5f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
+              f"profiler device {json.dumps(kernel)} ms, wall {wall:.5f} ms per call",
+              flush=True)
+        out[dtype] = t
+        del bufs
+    return out
+
+
+def time_soft_head(ta, batch: int, dim: int, seed: int, label: str) -> dict:
+    """B1 at one shape, f32 and bf16 W, with 4 rotating feats buffers."""
+    rng = np.random.RandomState(seed)
+    W = (rng.randn(dim, ta.num_classes) / math.sqrt(dim)).astype(np.float32)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        hc = st.prepare_head_constants(ta, W, None, dtype=dtype)
+        bufs = [torch.rand(batch, dim, device="cuda").to(dtype) for _ in range(4)]
+        it = itertools.count()
+        t = {
+            "ms": time_cuda(lambda: st.fused_soft_head(bufs[next(it) % 4], hc, want_aux=False)),
+            "plain_ms": time_cuda(lambda: st.soft_head_reference(bufs[next(it) % 4], hc, False)),
+            "bound": head_bound_ms(hc, batch, dim),
+        }
+        wall, device, _ = profile_ms(
+            lambda: st.fused_soft_head(bufs[next(it) % 4], hc, want_aux=False))
+        kernel = {k: v for k, v in device.items() if "soft_head" in k}
+        print(f"[times] soft_head {label} W={str(dtype)[6:]}: events {t['ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
+              f"profiler device {json.dumps(kernel)} ms, wall {wall:.5f} ms per call",
+              flush=True)
+        out[dtype] = t
+        del bufs
+    return out
+
+
+def main() -> int:
+    # Device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[device] {kind}, {count} device(s), torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    print(smi, flush=True)
+    print(f"[device] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    # Build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    _build.build_all()
+    _build.load_library("soft_head")
+    _build.load_library("layernorm")
+    print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
+    for name in ("soft_head", "layernorm"):
+        ptxas_report(name)
+
+    # Kernels vs their plain versions
+    trees = {"CIFAR10": Tree("CIFAR10"), "CIFAR100": Tree("CIFAR100"),
+             "Imagenet1000": Tree("Imagenet1000"), "synthetic-K3": synthetic_tree()}
+    head_err = check_soft_head_kernel(trees)
+    ln_err = check_layernorm_kernel()
+
+    # Main paths, each with the counts set to 0 just before it
+    resnet = run_resnet_path(trees)
+    vit = run_vit_path(trees["Imagenet1000"])
+
+    # Kernel times
+    head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
+                                 "ResNet18 shape B=8192 D=512 C=10")
+    head_vit = time_soft_head(trees["Imagenet1000"].arrays, VIT_BATCH, VIT_DIM, 8,
+                              "ViT head shape B=256 D=768 C=1000")
+    ln_t = time_layernorm()
+
+    def with_rates(times: dict, batch: int) -> dict:
+        """The request times plus images/s for each device (event) time."""
+        out = {k: v for k, v in times.items() if k != "launches"}
+        out.update({k.replace("_ms_per_request", "_images_per_s"): batch / v * 1e3
+                    for k, v in out.items() if k.endswith("_ms_per_request")
+                    and "_wall_" not in k})
+        return out
+
     print(json.dumps({"main_path": {
-        "batch": BATCH, "requests_timed": TIMED, "fused_ms_per_request": fused_ms,
-        "plain_ms_per_request": plain_ms, "serving_bf16_folded_uint8_ms_per_request": serve_ms,
+        "resnet18": {"batch": BATCH, "requests_timed": 10, **with_rates(resnet, BATCH)},
+        "vit_b16": {"batch": VIT_BATCH, "image": VIT_IMG, "classes": VIT_CLASSES,
+                    "requests_timed": TIMED, **with_rates(vit, VIT_BATCH)},
         "card": smi}}), flush=True)
 
-    f32, bf16 = times[torch.float32], times[torch.bfloat16]
+    f32, bf16 = torch.float32, torch.bfloat16
+    head_launches = resnet["launches"]["soft_head"] + vit["launches"]["soft_head"]
     print(json.dumps({"kernels": [{
         "name": "soft_head",
         "route": "cuda",
         "source": "nbdt_torch/csrc/soft_head.cu",
         "replaces": "nbdt_tpu/ops/soft_traversal.py:172",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound"][0],
-        "bound_by": f32["bound"][1],
+        "launches": head_launches,
+        "launches_by_path": {"resnet18": resnet["launches"]["soft_head"],
+                             "vit_b16": vit["launches"]["soft_head"]},
+        "max_abs_err": head_err,
+        "ms": head_resnet[f32]["ms"],
+        "plain_ms": head_resnet[f32]["plain_ms"],
+        "bound_ms": head_resnet[f32]["bound"][0],
+        "bound_by": head_resnet[f32]["bound"][1],
         "library_ms": None,
-        "bf16_ms": bf16["ms"],
-        "bf16_plain_ms": bf16["plain_ms"],
-        "bf16_bound_ms": bf16["bound"][0],
+        "bf16_ms": head_resnet[bf16]["ms"],
+        "bf16_plain_ms": head_resnet[bf16]["plain_ms"],
+        "bf16_bound_ms": head_resnet[bf16]["bound"][0],
+        "vit_shape_ms": head_vit[f32]["ms"],
+        "vit_shape_plain_ms": head_vit[f32]["plain_ms"],
+        "vit_shape_bound_ms": head_vit[f32]["bound"][0],
+        "vit_shape_bound_by": head_vit[f32]["bound"][1],
+    }, {
+        "name": "layernorm",
+        "route": "cuda",
+        "source": "nbdt_torch/csrc/layernorm.cu",
+        "replaces": "nbdt_tpu/ops/layernorm.py:24",
+        "launches": vit["launches"]["layernorm"],
+        "max_abs_err": ln_err[f32],
+        "ms": ln_t[f32]["ms"],
+        "plain_ms": ln_t[f32]["plain_ms"],
+        "bound_ms": ln_t[f32]["bound"][0],
+        "bound_by": ln_t[f32]["bound"][1],
+        "library_ms": ln_t[f32]["library_ms"],
+        "bf16_max_abs_err": ln_err[bf16],
+        "bf16_ms": ln_t[bf16]["ms"],
+        "bf16_plain_ms": ln_t[bf16]["plain_ms"],
+        "bf16_bound_ms": ln_t[bf16]["bound"][0],
+        "bf16_library_ms": ln_t[bf16]["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -10,8 +10,10 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
   hierarchy/  host-side graph, wnid naming, classifier probe
   tree        host Tree + compilation to static arrays
   rules       soft and hard decision rules as plain PyTorch (exact f32)
-  models      CIFAR ResNets (NCHW), BN folding, flax -> torch converter
-  ops         hand-written CUDA kernels (csrc/) beside their plain versions
+  models      CIFAR ResNets and ViT-B/16, ViT-S/16 (NCHW), BN folding,
+              flax -> torch converter, get_model
+  ops         hand-written CUDA kernels (csrc/: soft head, LayerNorm) beside
+              their plain versions
   model       NBDT / SoftNBDT / HardNBDT wrappers (NHWC input)
   serving     make_serving_fn
 """

@@ -1,6 +1,9 @@
-"""Normalization constants (the reference's CIFAR values)."""
+"""Normalization constants (the reference's CIFAR values and torchvision's
+ImageNet values)."""
 
 import numpy as np
 
 CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], dtype=np.float32)
 CIFAR_STD = np.array([0.2023, 0.1994, 0.2010], dtype=np.float32)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)

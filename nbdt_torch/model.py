@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .hierarchy.generate import get_classifier_from_module
+from .hierarchy.generate import CLASSIFIER_NAMES, get_classifier_from_module
 from .models.fold import fold_batchnorm
 from .ops.soft_traversal import fused_soft_head, prepare_head_constants
 from .rules import HardEmbeddedDecisionRules, SoftEmbeddedDecisionRules
@@ -117,7 +117,8 @@ class NBDT:
             "plain formulation)"
         )
         kernel, bias = get_classifier_from_module(model)
-        assert kernel is not None, "no classifier (`linear`) found on the model"
+        assert kernel is not None, (
+            f"no classifier (an nn.Linear named one of {CLASSIFIER_NAMES}) on the model")
         return prepare_head_constants(tree.arrays, kernel, bias, device=self.device)
 
     def _input(self, x) -> torch.Tensor:

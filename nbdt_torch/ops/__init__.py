@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain version."""
 
+from .layernorm import fused_layernorm, layernorm_reference
 from .soft_traversal import (
     fused_soft_head,
     make_fused_soft_head,

@@ -7,16 +7,16 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from .data.transforms import CIFAR_MEAN, CIFAR_STD
 from .models.fold import fold_batchnorm
-from .models.resnet import ResNet
 from .rules import soft_forward, to_device_tree
 from .utils import resolve_device
 
 
 def make_serving_fn(
-    module: ResNet,
+    module: nn.Module,
     tree,
     bf16: bool = True,
     fold_bn: bool = False,
@@ -27,9 +27,11 @@ def make_serving_fn(
     """Build ``x [B,H,W,3] -> leaf probability distribution [B, C]``, the raw
     product of path probabilities (unnormalized; argmax is the prediction).
 
-    ``bf16`` runs the conv backbone in bfloat16; node decisions always
-    compute in f32. ``fold_bn`` folds BatchNorm into the conv weights first
-    (ResNet family). ``uint8_input`` accepts raw uint8 NHWC batches and
+    ``module`` is a port backbone (ResNet or ViT) with ``dtype`` and
+    ``clone(dtype=...)``. ``bf16`` runs it with a bfloat16 stream; node
+    decisions always compute in f32. ``fold_bn`` folds BatchNorm into the
+    conv weights first (ResNet family; anything else raises TypeError, as in
+    the JAX package). ``uint8_input`` accepts raw uint8 NHWC batches and
     normalizes on the device; ``normalize`` is ``(mean, std)`` in [0,1]
     units, the CIFAR constants by default. As in the JAX package this calls
     the plain rules (``soft_forward``), not the fused head.

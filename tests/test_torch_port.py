@@ -113,6 +113,7 @@ def test_port_imports_nothing_of_jax():
     code = (
         "import importlib.util, sys\n"
         "import nbdt_torch, nbdt_torch.ops, nbdt_torch.models, nbdt_torch.serving\n"
+        "import nbdt_torch.models.vit, nbdt_torch.ops.layernorm\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -146,15 +147,18 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present, so the default does not raise")
     from nbdt_torch import SoftNBDT, make_serving_fn
-    from nbdt_torch.models import ResNet10
+    from nbdt_torch.models import ResNet10, ViT
     from nbdt_torch.ops.soft_traversal import prepare_head_constants
 
     _, tree = tree_pair("synthetic")
-    model = ResNet10(7)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        SoftNBDT(None, model, tree=tree)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        make_serving_fn(model, tree)
+    vit = ViT(dim=128, depth=1, heads=2, num_classes=7, ln_impl="pallas", image_size=32)
+    for model in (ResNet10(7), vit):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SoftNBDT(None, model, tree=tree)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SoftNBDT(None, model, tree=tree, fused=True)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_serving_fn(model, tree)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prepare_head_constants(tree.arrays, np.zeros((512, 7), np.float32))
 
@@ -181,3 +185,33 @@ def test_soft_head_kernel_matches_plain_on_gpu():
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_layernorm_kernel_matches_plain_on_gpu():
+    """Kernel vs its plain version on the card: register-held rows (D=128,
+    384, 768) and a streamed one (D=2048 f32, D=4096 bf16), odd row counts,
+    3-d input, both dtypes; f32 within 2e-5, bf16 within the bf16 defaults."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nbdt_torch.ops import layernorm as ln
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for shape in ((1, 128), (257, 384), (3, 67, 768), (33, 2048), (5, 4096)):
+        D = shape[-1]
+        w = torch.randn(D, device="cuda", generator=g)
+        b = torch.randn(D, device="cuda", generator=g)
+        x = torch.randn(shape, device="cuda", generator=g) * 3 + 1
+        for dtype in (torch.float32, torch.bfloat16):
+            before = ln.launches
+            got = ln.fused_layernorm(x.to(dtype), w, b)
+            assert ln.launches == before + 1
+            want = ln.layernorm_reference(x.to(dtype), w, b)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+            else:
+                torch.testing.assert_close(got, want)
+    empty = ln.fused_layernorm(torch.zeros(0, 128, device="cuda"), w[:128], b[:128])
+    assert empty.shape == (0, 128)
