@@ -3,20 +3,23 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths through its entry points, with seeded
-random weights: soft-NBDT ResNet18 on the CIFAR10 induced hierarchy at batch
-8192, and soft-NBDT ViT-B/16 (224px, 1000 classes, bf16 stream, the fused
-LayerNorm kernel) on the Imagenet1000 induced hierarchy at batch 256. Builds
-every hand-written kernel from ``nbdt_torch/csrc/``, holds each against its
-plain PyTorch version, checks each path's launch counts and outputs, and
-times the kernels and requests with CUDA events. Exits nonzero, printing no
-result, when there is no CUDA device or any check fails. The last line is
+Drives the port's three paths through its entry points, with seeded random
+weights: soft-NBDT ResNet18 on the CIFAR10 induced hierarchy at batch 8192,
+soft-NBDT ViT-B/16 (224px, 1000 classes, bf16 stream, the fused LayerNorm
+kernel) on the Imagenet1000 induced hierarchy at batch 256, and the 3x3 conv
+probe (``nbdt_torch.tools.probe_pallas_conv``: ResNet18's L1 conv, 64 -> 64
+channels at 32px, + bias + ReLU, bf16) at batch 8192. Builds every
+hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
+PyTorch version, checks each path's launch counts and outputs, and times the
+kernels and requests with CUDA events. Exits nonzero, printing no result,
+when there is no CUDA device or any check fails. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
 record.
 
-Phases: device, build, kernel vs plain (soft_head, layernorm), ResNet18 main
-path, its serving fn, ViT-B/16 main path, its f32 gate, its serving fn,
-times.
+Phases: device, build, the conv probe's inputs, kernel vs plain (soft_head,
+layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
+its f32 gate, its serving fn, the conv probe path (one request, then the
+probe's parity and timing phases), times.
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ from nbdt_torch.data.transforms import CIFAR_MEAN, CIFAR_STD, IMAGENET_MEAN, IMA
 from nbdt_torch.hierarchy.digraph import Digraph
 from nbdt_torch.models import ResNet18, vit_b16
 from nbdt_torch.ops import _build
+from nbdt_torch.ops import conv3x3 as conv
 from nbdt_torch.ops import layernorm as ln
 from nbdt_torch.ops import soft_traversal as st
+from nbdt_torch.tools import probe_pallas_conv as probe
 from nbdt_torch.tree import Tree
 
 BATCH = 8192  # the flagship serving batch (bench.py's)
@@ -49,6 +54,7 @@ VIT_IMG = 224
 VIT_DIM = 768
 VIT_CLASSES = 1000
 VIT_LN_PER_REQUEST = 25  # 2 per block x 12 blocks + the final LayerNorm
+PROBE_PARITY_BATCH = 64  # tools/probe_pallas_conv.py's --parity-batch
 REQUESTS = 3
 TIMED = 20
 # Published H100 SXM peaks (at a 700 W power limit): HBM bytes/s and f32
@@ -67,6 +73,14 @@ LN_TOL = 2e-5
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def reset_launches() -> None:
+    st.launches = ln.launches = conv.launches = 0
+
+
+def read_launches() -> dict:
+    return {"soft_head": st.launches, "layernorm": ln.launches, "conv3x3": conv.launches}
 
 
 def synthetic_tree() -> Tree:
@@ -128,8 +142,9 @@ def wall_ms(fn, n: int = TIMED, warmup: int = 3) -> float:
 
 def profile_ms(fn, n: int = TIMED) -> tuple:
     """torch.profiler over n calls: (wall ms per call, {kernel name: device
-    ms per call}, {aten op: device ms per call of the kernels it launched}).
-    The dicts are empty if the profiler saw no device time."""
+    ms per call}, {aten op: device ms per call of the kernels it launched},
+    {kernel name: instances the profiler recorded over the n calls}). The
+    dicts are empty if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -140,22 +155,24 @@ def profile_ms(fn, n: int = TIMED) -> tuple:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    device, ops = {}, {}
+    device, ops, seen = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
             device[e.key] = e.self_device_time_total / n / 1e3
+            seen[e.key] = e.count
         elif e.key.startswith("aten::") and e.self_device_time_total:
             ops[e.key] = e.self_device_time_total / n / 1e3
-    return wall, device, ops
+    return wall, device, ops, seen
 
 
-def print_profile(label: str, wall: float, device: dict, ops: dict) -> None:
+def print_profile(label: str, wall: float, device: dict, ops: dict, seen: dict) -> None:
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
     print(f"[times] {label} under the profiler: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms (idle share {1 - busy / wall:.4f}); top kernels "
-          f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}; device ms by aten op "
+          f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}; their instances recorded "
+          f"{json.dumps({k[:60]: seen[k] for k, _ in top})}; device ms by aten op "
           f"{json.dumps({k: round(v, 4) for k, v in top_ops})}", flush=True)
 
 
@@ -324,6 +341,66 @@ def check_layernorm_kernel() -> dict:
     return errs
 
 
+def check_conv3x3_kernel(inp: probe.ProbeInputs) -> float:
+    """B3 vs its plain version with the probe's weight and bias: the probe's
+    parity batch (64 x 32 x 32), N=3 at 32x32, an odd map (N=5 at 7x5: the
+    edges and a partial tile) and the probe's batch of 8192, each at
+    assert_close's bf16 defaults. Returns the largest max-abs error."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = [inp.x_parity,
+             torch.randn(3, 32, 32, 64, device="cuda", generator=g).bfloat16(),
+             torch.randn(5, 7, 5, 64, device="cuda", generator=g).bfloat16(),
+             inp.x]
+    max_err = 0.0
+    for x in cases:
+        got = conv.conv3x3_bias_relu(x, inp.w, inp.b)
+        want = conv.conv3x3_bias_relu_reference(x, inp.w, inp.b)
+        torch.cuda.synchronize()
+        case = "conv3x3 N={} {}x{}".format(*x.shape[:3])
+        check(got.dtype == torch.bfloat16 and got.shape == x.shape, f"{case}: dtype/shape")
+        torch.testing.assert_close(got, want, msg=lambda m: f"{case}: {m}")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        max_err = max(max_err, err)
+        print(f"[kernel] {case}: max-abs err {err:.3g}, share of elements that differ "
+              f"{float((diff > 0).float().mean()):.3g}", flush=True)
+        del got, want, diff
+    return max_err
+
+
+def run_conv_probe_path(inp: probe.ProbeInputs) -> dict:
+    """The conv probe's main path: one request (one call at the probe's
+    batch) with the count set to 0 just before it, then the probe's own
+    parity and timing phases (``run_probe``) on the same inputs."""
+    torch.cuda.synchronize()
+    reset_launches()
+    y = probe.request(inp)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 1},
+          f"conv probe request launches {launches}, expected one conv3x3")
+    check(y.shape == inp.x.shape and bool(torch.isfinite(y).all()),
+          f"conv probe request: bad output {tuple(y.shape)}")
+    zeros = float((y == 0).float().mean())
+    print(f"[probe] request of {inp.x.shape[0]} images: 1 conv3x3 launch, output "
+          f"{list(y.shape)} finite, share of zeros after ReLU {zeros:.4f}", flush=True)
+    del y
+    # cuDNN's library row runs in bf16, where allow_tf32 (off here) plays no part.
+    res = probe.run_probe(inp.x.shape[0], inp.x_parity.shape[0], TIMED, "cuda", inputs=inp)
+    check(res["request"]["launches"] == 1 and res["request"]["finite"],
+          f"conv probe run_probe request: {res['request']}")
+    t = res["timing"]
+    print(f"[times] conv3x3 N={inp.x.shape[0]} 32x32 64->64: kernel {t['kernel']['ms']:.5f} ms "
+          f"({t['kernel']['tflops']:.1f} TFLOP/s), plain {t['plain']['ms']:.5f} ms, F.conv2d "
+          f"+ relu_ {t['library']['ms']:.5f} ms, bound {res['bound_ms']:.5f} ms "
+          f"({res['bound_by']})", flush=True)
+    w_lib, b_lib = probe.library_weights(inp)
+    print_profile("conv3x3 kernel request", *profile_ms(lambda: probe.request(inp), n=5))
+    print_profile("F.conv2d + relu_ at the request's shape",
+                  *profile_ms(lambda: probe.library_conv(inp.x, w_lib, b_lib), n=5))
+    return {"launches": launches, "zero_share": zeros, **res}
+
+
 def run_resnet_path(trees: dict) -> dict:
     """ResNet18 main path (3 requests of 8192 through SoftNBDT(fused=True))
     and its serving fn. Returns the launches and the request times."""
@@ -341,11 +418,11 @@ def run_resnet_path(trees: dict) -> dict:
     requests = [torch.randn(BATCH, 32, 32, 3, device="cuda", generator=cgen)
                 for _ in range(REQUESTS)]
     torch.cuda.synchronize()
-    st.launches = ln.launches = 0
+    reset_launches()
     outs = [fused(x) for x in requests]
     torch.cuda.synchronize()
-    launches = {"soft_head": st.launches, "layernorm": ln.launches}
-    check(launches == {"soft_head": REQUESTS, "layernorm": 0},
+    launches = read_launches()
+    check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0},
           f"ResNet18 path launches {launches} over {REQUESTS} requests")
     for i, (x, out) in enumerate(zip(requests, outs)):
         ref = plain(x)
@@ -404,11 +481,11 @@ def run_vit_path(tree: Tree) -> dict:
     requests = [torch.randn(VIT_BATCH, VIT_IMG, VIT_IMG, 3, device="cuda", generator=cgen)
                 for _ in range(REQUESTS)]
     torch.cuda.synchronize()
-    st.launches = ln.launches = 0
+    reset_launches()
     outs = [fused(x) for x in requests]
     torch.cuda.synchronize()
-    launches = {"soft_head": st.launches, "layernorm": ln.launches}
-    want = {"soft_head": REQUESTS, "layernorm": VIT_LN_PER_REQUEST * REQUESTS}
+    launches = read_launches()
+    want = {"soft_head": REQUESTS, "layernorm": VIT_LN_PER_REQUEST * REQUESTS, "conv3x3": 0}
     check(launches == want, f"ViT path launches {launches} over {REQUESTS} requests, "
                             f"expected {want}")
     for i, out in enumerate(outs):
@@ -503,7 +580,7 @@ def time_layernorm() -> dict:
                 bufs[next(it) % 2], (VIT_DIM,), w.to(dtype), b.to(dtype), 1e-6)),
             "bound": ln_bound_ms(bufs[0]),
         }
-        wall, device, _ = profile_ms(lambda: ln.fused_layernorm(bufs[next(it) % 2], w, b))
+        wall, device, _, _ = profile_ms(lambda: ln.fused_layernorm(bufs[next(it) % 2], w, b))
         kernel = {k[:60]: v for k, v in device.items() if "layernorm" in k}
         gbs = 2 * bufs[0].numel() * bufs[0].element_size() / t["ms"] / 1e6
         print(f"[times] layernorm {str(dtype)[6:]} {rows}x{VIT_DIM}: kernel {t['ms']:.5f} ms "
@@ -530,7 +607,7 @@ def time_soft_head(ta, batch: int, dim: int, seed: int, label: str) -> dict:
             "plain_ms": time_cuda(lambda: st.soft_head_reference(bufs[next(it) % 4], hc, False)),
             "bound": head_bound_ms(hc, batch, dim),
         }
-        wall, device, _ = profile_ms(
+        wall, device, _, _ = profile_ms(
             lambda: st.fused_soft_head(bufs[next(it) % 4], hc, want_aux=False))
         kernel = {k: v for k, v in device.items() if "soft_head" in k}
         print(f"[times] soft_head {label} W={str(dtype)[6:]}: events {t['ms']:.5f} ms, plain "
@@ -564,21 +641,31 @@ def main() -> int:
     # Build: one nvcc per source, all started together
     t0 = time.perf_counter()
     _build.build_all()
-    _build.load_library("soft_head")
-    _build.load_library("layernorm")
+    kernels = ("soft_head", "layernorm", "conv3x3")
+    for name in kernels:
+        _build.load_library(name)
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
-    for name in ("soft_head", "layernorm"):
+    for name in kernels:
         ptxas_report(name)
+
+    # The conv probe's seeded draws (tools/probe_pallas_conv.py's), on the card
+    t0 = time.perf_counter()
+    conv_inp = probe.make_inputs(BATCH, PROBE_PARITY_BATCH, "cuda")
+    print(f"[probe] drew the conv probe's inputs (parity {PROBE_PARITY_BATCH}, batch "
+          f"{BATCH}) in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # Kernels vs their plain versions
     trees = {"CIFAR10": Tree("CIFAR10"), "CIFAR100": Tree("CIFAR100"),
              "Imagenet1000": Tree("Imagenet1000"), "synthetic-K3": synthetic_tree()}
     head_err = check_soft_head_kernel(trees)
     ln_err = check_layernorm_kernel()
+    conv_err = check_conv3x3_kernel(conv_inp)
 
     # Main paths, each with the counts set to 0 just before it
     resnet = run_resnet_path(trees)
     vit = run_vit_path(trees["Imagenet1000"])
+    conv_probe = run_conv_probe_path(conv_inp)
+    del conv_inp
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -599,9 +686,13 @@ def main() -> int:
         "resnet18": {"batch": BATCH, "requests_timed": 10, **with_rates(resnet, BATCH)},
         "vit_b16": {"batch": VIT_BATCH, "image": VIT_IMG, "classes": VIT_CLASSES,
                     "requests_timed": TIMED, **with_rates(vit, VIT_BATCH)},
+        "conv3x3_probe": {"batch": BATCH, "launches_per_request": conv_probe["launches"],
+                          "zero_share": conv_probe["zero_share"],
+                          "parity": conv_probe["parity"], "timing": conv_probe["timing"]},
         "card": smi}}), flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
+    conv_t = conv_probe["timing"]
     head_launches = resnet["launches"]["soft_head"] + vit["launches"]["soft_head"]
     print(json.dumps({"kernels": [{
         "name": "soft_head",
@@ -641,6 +732,19 @@ def main() -> int:
         "bf16_plain_ms": ln_t[bf16]["plain_ms"],
         "bf16_bound_ms": ln_t[bf16]["bound"][0],
         "bf16_library_ms": ln_t[bf16]["library_ms"],
+    }, {
+        "name": "conv3x3",
+        "route": "cuda",
+        "source": "nbdt_torch/csrc/conv3x3.cu",
+        "replaces": "tools/probe_pallas_conv.py:146",
+        "replaces_also": ["tools/probe_pallas_conv.py:201", "tools/probe_pallas_conv.py:270"],
+        "launches": conv_probe["launches"]["conv3x3"],
+        "max_abs_err": conv_err,
+        "ms": conv_t["kernel"]["ms"],
+        "plain_ms": conv_t["plain"]["ms"],
+        "bound_ms": conv_probe["bound_ms"],
+        "bound_by": conv_probe["bound_by"],
+        "library_ms": conv_t["library"]["ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

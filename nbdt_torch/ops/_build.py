@@ -5,7 +5,8 @@ at the checkout root: compiled by ``nvcc`` for ``sm_90a`` with a plain C
 interface (no PyTorch headers, so a build takes seconds), at first CUDA use
 and never on import. One ``nvcc`` runs per source, all started together.
 The file name carries a hash of the sources and flags, so an edited source
-is rebuilt and an unchanged one is reused.
+is rebuilt and an unchanged one is reused. :func:`aligned` gives a wrapper
+the contiguous, 16-byte aligned tensor its kernel's vector loads need.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nbdt_torch"
@@ -75,6 +78,13 @@ def build_all() -> None:
             os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned start (the kernels' vector
+    loads), copied only if it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def load_library(name: str) -> ctypes.CDLL:

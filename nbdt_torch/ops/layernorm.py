@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from ._build import load_library
+from ._build import aligned, load_library
 
 launches = 0  # kernel launches since the caller last reset it
 
@@ -49,13 +49,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous with a 16-byte aligned start (the kernel's vector
-    loads), copied only if it is not."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def fused_layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm of ``x [..., D]`` over its last axis with f32 ``weight`` and
@@ -81,8 +74,8 @@ def fused_layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"layernorm takes f32 or bf16 x, not {x.dtype}")
 
     lib = _library()
-    x = _aligned(x)
-    weight, bias = _aligned(weight.float()), _aligned(bias.float())
+    x = aligned(x)
+    weight, bias = aligned(weight.float()), aligned(bias.float())
     y = torch.empty_like(x)
     rows = x.numel() // D
     if rows == 0:

@@ -113,7 +113,8 @@ def test_port_imports_nothing_of_jax():
     code = (
         "import importlib.util, sys\n"
         "import nbdt_torch, nbdt_torch.ops, nbdt_torch.models, nbdt_torch.serving\n"
-        "import nbdt_torch.models.vit, nbdt_torch.ops.layernorm\n"
+        "import nbdt_torch.models.vit, nbdt_torch.ops.layernorm, nbdt_torch.ops.conv3x3\n"
+        "import nbdt_torch.tools.probe_pallas_conv\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -149,6 +150,7 @@ def test_entry_points_default_to_cuda():
     from nbdt_torch import SoftNBDT, make_serving_fn
     from nbdt_torch.models import ResNet10, ViT
     from nbdt_torch.ops.soft_traversal import prepare_head_constants
+    from nbdt_torch.tools.probe_pallas_conv import run_probe
 
     _, tree = tree_pair("synthetic")
     vit = ViT(dim=128, depth=1, heads=2, num_classes=7, ln_impl="pallas", image_size=32)
@@ -161,6 +163,8 @@ def test_entry_points_default_to_cuda():
             make_serving_fn(model, tree)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prepare_head_constants(tree.arrays, np.zeros((512, 7), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_probe(4, 2, 1)
 
 
 @pytest.mark.gpu
@@ -215,3 +219,28 @@ def test_layernorm_kernel_matches_plain_on_gpu():
                 torch.testing.assert_close(got, want)
     empty = ln.fused_layernorm(torch.zeros(0, 128, device="cuda"), w[:128], b[:128])
     assert empty.shape == (0, 128)
+
+
+@pytest.mark.gpu
+def test_conv3x3_kernel_matches_plain_on_gpu():
+    """Kernel vs its plain version on the card: N in {1, 3} on the probe's
+    32x32 map, an odd 7x5 map (edges, a partial tile) and 6x33 (a second,
+    ragged column tile); bf16 assert_close defaults; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nbdt_torch.ops import conv3x3
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(3, 3, 64, 64, device="cuda", generator=g) * 0.05
+    b = torch.randn(64, device="cuda", generator=g) * 0.01
+    for n in (1, 3):
+        for h, wd in ((32, 32), (7, 5), (6, 33)):
+            x = torch.randn(n, h, wd, 64, device="cuda", generator=g).bfloat16()
+            before = conv3x3.launches
+            got = conv3x3.conv3x3_bias_relu(x, w, b)
+            assert conv3x3.launches == before + 1
+            want = conv3x3.conv3x3_bias_relu_reference(x, w, b)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bfloat16 and got.shape == (n, h, wd, 64)
+            torch.testing.assert_close(got, want)
+    assert conv3x3.conv3x3_bias_relu(x[:0], w, b).shape == (0, 6, 33, 64)
