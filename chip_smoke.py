@@ -57,10 +57,14 @@ VIT_LN_PER_REQUEST = 25  # 2 per block x 12 blocks + the final LayerNorm
 PROBE_PARITY_BATCH = 64  # tools/probe_pallas_conv.py's --parity-batch
 REQUESTS = 3
 TIMED = 20
-# Published H100 SXM peaks (at a 700 W power limit): HBM bytes/s and f32
-# (non-tensor-core) FLOP/s.
+# Published H100 SXM peaks (at a 700 W power limit): HBM bytes/s, f32
+# (non-tensor-core) FLOP/s and bf16 tensor-core FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# W sets the head's timing rotates at the ViT shape: 17 f32 W of 3 MB are
+# more than the 50 MB L2, so W comes from HBM, as inside a request.
+HEAD_W_SETS = 17
 # f32 tolerance of the head kernel vs its plain version: both sum in f32 in
 # different orders over D=512 or 768 products and up to 17 path steps.
 TOL = 1e-4
@@ -97,6 +101,38 @@ def synthetic_tree() -> Tree:
                  ("i3", wnids[3]), ("i3", wnids[4])]:
         G.add_edge(u, v)
     return Tree.from_graph(G, wnids)
+
+
+def grouped_tree(C: int, K: int, dag: bool = False) -> Tree:
+    """C leaves grouped K at a time, level by level, up to one root (a lone
+    node at the end of a level moves up as it is). With ``dag``, every 7th
+    leaf also hangs under the parent of the leaf K places on: two paths."""
+    G = Digraph()
+    leaves = [f"f{i:08d}" for i in range(C)]
+    for i, w in enumerate(leaves):
+        G.add_node(w, label=f"leaf{i}")
+    parent, level, n = {}, list(leaves), 0
+    while len(level) > 1:
+        nxt = []
+        for i in range(0, len(level), K):
+            group = level[i:i + K]
+            if len(group) == 1:
+                nxt.append(group[0])
+                continue
+            inner = f"n{n:07d}"
+            n += 1
+            G.add_node(inner, label=inner)
+            for child in group:
+                G.add_edge(inner, child)
+                parent[child] = inner
+            nxt.append(inner)
+        level = nxt
+    if dag:
+        for i in range(0, C, 7):
+            other = parent[leaves[(i + K) % C]]
+            if other != parent[leaves[i]]:
+                G.add_edge(other, leaves[i])
+    return Tree.from_graph(G, leaves)
 
 
 def argmax_agreement(got: torch.Tensor, want: torch.Tensor, tol: float):
@@ -203,16 +239,20 @@ def head_inputs(ta, batch: int, dim: int, seed: int):
 
 def head_bound_ms(hc: st.HeadConstants, B: int, D: int) -> tuple:
     """Least time for the head on an H100: every input read once and the
-    leaf output written once at HBM rate, vs the f32 operations this tree's
-    lists need at the f32 peak."""
+    leaf output written once at HBM rate, vs its operations at their peaks:
+    the classifier at the f32 CUDA-core peak for an f32 W (TF32 is ruled
+    out) or the bf16 tensor-core peak for a bf16 W, the tree lists' f32
+    operations at the f32 peak."""
     consts = (hc.W, hc.b, hc.slot_ptr, hc.slot_cls, hc.slot_w, hc.slot_valid,
               hc.class_ptr, hc.class_slot)
     nbytes = B * D * hc.W.element_size() + sum(t.numel() * t.element_size() for t in consts)
     nbytes += B * hc.num_classes * 4
     S = hc.num_nodes * hc.max_children
-    flops = B * (2 * D * hc.num_classes + 2 * hc.slot_cls.numel()
-                 + hc.class_slot.numel() + 4 * S)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    classifier = 2 * B * D * hc.num_classes
+    tree = B * (2 * hc.slot_cls.numel() + hc.class_slot.numel() + 4 * S)
+    peak = PEAK_F32_FLOPS if hc.W.dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (classifier / peak + tree / PEAK_F32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -260,15 +300,24 @@ def variant(model, **kw):
     return m.to("cuda").eval()
 
 
-def gate_soft_head(feats: torch.Tensor, hc: st.HeadConstants, ta, want_aux: bool,
+def gate_soft_head(feats: torch.Tensor, hc: st.HeadConstants, want_aux: bool,
                    case: str, tag: str = "[kernel]") -> float:
     """B1 vs its plain version on the same feats: f32 W within TOL on the
     leaf log-probs (and the aux logits and valid-slot log-probs), bf16 W
     within 1e-2 relative on the leaf probabilities, argmax 1.0 on rows whose
-    plain top-2 gap exceeds TOL. Returns the leaf max-abs error."""
+    plain top-2 gap exceeds TOL. Prints the instance and cluster size that
+    ran. Returns the leaf max-abs error."""
     got = st.fused_soft_head(feats, hc, want_aux=want_aux)
     want = st.soft_head_reference(feats, hc, want_aux=want_aux)
     torch.cuda.synchronize()
+    plan = st.last_launch["plan"]
+    lib = st._library()
+    smem = lib.nbdt_soft_head_smem_bytes(
+        int(plan.instance == "cluster"), feats.shape[1], hc.num_classes,
+        hc.num_nodes * hc.max_children, hc.slot_cls.numel(), hc.class_slot.numel(),
+        int(hc.W.dtype == torch.bfloat16), plan.rows, plan.q, plan.class_slice, plan.stages)
+    check(smem == plan.smem_bytes, f"{case}: plan says {plan.smem_bytes} bytes of shared "
+                                   f"memory, the kernel {smem}")
     check(all(bool(torch.isfinite(g).all()) for g in got), f"{case}: non-finite output")
     err = float((got[0] - want[0]).abs().max())
     if hc.W.dtype == torch.float32:
@@ -278,10 +327,12 @@ def gate_soft_head(feats: torch.Tensor, hc: st.HeadConstants, ta, want_aux: bool
               f"{case}: leaf probabilities beyond 1e-2 relative")
     agree, ties, raw = argmax_agreement(got[0], want[0], TOL)
     check(agree == 1.0, f"{case}: argmax agreement {agree}")
-    line = (f"{tag} {case}: leaf err {err:.3g}, argmax {agree} "
-            f"({ties} tie rows within {TOL}, raw {raw})")
+    line = (f"{tag} {case} [{plan.instance} q={plan.q} rows={plan.rows} stages={plan.stages} "
+            f"lists in smem={plan.lists_in_smem} grid="
+            f"{st.last_launch['grid']} resident={st.last_launch['resident']}]: leaf err "
+            f"{err:.3g}, argmax {agree} ({ties} tie rows within {TOL}, raw {raw})")
     if want_aux:
-        valid = torch.as_tensor(ta.child_mask.reshape(-1), device="cuda")
+        valid = hc.slot_valid.bool()
         lerr = float((got[1] - want[1]).abs().max())
         perr = float((got[2] - want[2])[:, valid].abs().max())
         check(lerr <= TOL and perr <= TOL,
@@ -289,15 +340,35 @@ def gate_soft_head(feats: torch.Tensor, hc: st.HeadConstants, ta, want_aux: bool
         check(bool((got[2][:, ~valid] == st.NEG).all()), f"{case}: padded slots not -1e30")
         line += f", logits err {lerr:.3g}, logp err {perr:.3g}"
     print(line, flush=True)
+    instances_seen.add(plan.instance)
     return err
 
 
+instances_seen: set = set()  # B1 instances that ran in the kernel gates
+
+
 def check_soft_head_kernel(trees: dict) -> float:
-    """B1 vs its plain version at B=8192, D=512 on four trees, and at the
-    ViT head's shape (B=256, D=768) on Imagenet1000; f32 and bf16 W, aux on
-    and off. Returns the largest leaf max-abs error."""
+    """B1 vs its plain version: at B=8192, D=512 on four trees and at the
+    ViT head's shape (B=256, D=768) on Imagenet1000; ragged B (1, 17, 259)
+    at both instances; C = 32 and 33, on either side of the plan's switch
+    (K=2 and K=3); C = 300 (3 ranks), 1500 (two classifier passes a rank)
+    and 3000 (a shallower W ring, the lists left in global memory); a DAG at each instance; D=100 (bf16 W then takes the
+    cluster instance with unvectorized feats). f32 and bf16 W, aux on and
+    off. Checks that both instances ran. Returns the largest leaf max-abs
+    error."""
     cases = [(name, tree, BATCH, FEAT_DIM) for name, tree in trees.items()]
     cases.append(("Imagenet1000", trees["Imagenet1000"], VIT_BATCH, VIT_DIM))
+    for b in (1, 17, 259):
+        cases.append(("CIFAR10", trees["CIFAR10"], b, FEAT_DIM))
+        cases.append(("Imagenet1000", trees["Imagenet1000"], b, VIT_DIM))
+    cases += [("grouped C=32 K=2", grouped_tree(32, 2), 259, FEAT_DIM),
+              ("grouped C=33 K=3", grouped_tree(33, 3), 259, FEAT_DIM),
+              ("grouped C=300 K=3", grouped_tree(300, 3), 259, FEAT_DIM),
+              ("grouped C=1500 K=2", grouped_tree(1500, 2), 259, FEAT_DIM),
+              ("grouped C=3000 K=2", grouped_tree(3000, 2), 37, VIT_DIM),
+              ("DAG C=3", grouped_tree(3, 2, dag=True), 17, FEAT_DIM),
+              ("DAG C=40", grouped_tree(40, 2, dag=True), 259, FEAT_DIM),
+              ("CIFAR10", trees["CIFAR10"], 17, 100)]
     max_err = 0.0
     for seed, (tname, tree, batch, dim) in enumerate(cases):
         ta = tree.arrays
@@ -306,7 +377,9 @@ def check_soft_head_kernel(trees: dict) -> float:
             hc = st.prepare_head_constants(ta, W, b, dtype=dtype)
             for want_aux in (True, False):
                 case = f"{tname} B={batch} D={dim} W={str(dtype)[6:]} aux={want_aux}"
-                max_err = max(max_err, gate_soft_head(feats.to(dtype), hc, ta, want_aux, case))
+                max_err = max(max_err, gate_soft_head(feats.to(dtype), hc, want_aux, case))
+    check(instances_seen == {"stream", "cluster"},
+          f"soft_head instances that ran: {sorted(instances_seen)}")
     return max_err
 
 
@@ -436,7 +509,8 @@ def run_resnet_path(trees: dict) -> dict:
         print(f"[main] request {i}: fused vs plain argmax {agree} ({ties} tie rows, "
               f"raw {raw}), max |prob diff| {float((out - ref).abs().max()):.3g}, "
               f"{classes} classes predicted", flush=True)
-    print(f"[main] launches over {REQUESTS} requests: {json.dumps(launches)}", flush=True)
+    print(f"[main] launches over {REQUESTS} requests: {json.dumps(launches)}; soft_head "
+          f"{st.last_launch['plan']}, grid {st.last_launch['grid']}", flush=True)
     _, decisions = plain.forward_with_decisions(requests[0][:4])
     path = " -> ".join(f"{s['name']} ({s['prob']:.3f})" for s in decisions[0])
     print(f"[main] decision path of image 0: {path}", flush=True)
@@ -496,13 +570,14 @@ def run_vit_path(tree: Tree) -> dict:
         classes = int(out.argmax(1).unique().numel())
         print(f"[vit] request {i}: {classes} of {VIT_CLASSES} classes predicted, "
               f"max |sum - 1| {dev:.3g}", flush=True)
-    print(f"[vit] launches over {REQUESTS} requests: {json.dumps(launches)}", flush=True)
+    print(f"[vit] launches over {REQUESTS} requests: {json.dumps(launches)}; soft_head "
+          f"{st.last_launch['plan']}, grid {st.last_launch['grid']}", flush=True)
     # B1 vs its plain version on the features this path hands it
     with torch.no_grad():
         feats = fused.model(requests[0].permute(0, 3, 1, 2), features_only=True)
     check(feats.shape == (VIT_BATCH, VIT_DIM) and feats.dtype == torch.float32,
           f"ViT features {tuple(feats.shape)} {feats.dtype}")
-    gate_soft_head(feats, fused._head, tree.arrays, True,
+    gate_soft_head(feats, fused._head, True,
                    f"soft_head on ViT request 0 features B={VIT_BATCH} D={VIT_DIM}", "[vit]")
     plain = SoftNBDT("Imagenet1000", variant(base, dtype=torch.bfloat16, ln_impl="f32"),
                      tree=tree)
@@ -593,29 +668,50 @@ def time_layernorm() -> dict:
     return out
 
 
-def time_soft_head(ta, batch: int, dim: int, seed: int, label: str) -> dict:
-    """B1 at one shape, f32 and bf16 W, with 4 rotating feats buffers."""
+def time_soft_head(ta, batch: int, dim: int, seed: int, label: str, w_sets: int = 1) -> dict:
+    """B1 at one shape, f32 and bf16 W: the kernel, its plain version and,
+    as a yardstick for the classifier part only (never called by the port),
+    ``torch.addmm(b, feats, W)`` with TF32 off, each on 4 rotating feats
+    buffers and ``w_sets`` rotating sets of constants (distinct W)."""
     rng = np.random.RandomState(seed)
-    W = (rng.randn(dim, ta.num_classes) / math.sqrt(dim)).astype(np.float32)
+    Ws = [(rng.randn(dim, ta.num_classes) / math.sqrt(dim)).astype(np.float32)
+          for _ in range(w_sets)]
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        hc = st.prepare_head_constants(ta, W, None, dtype=dtype)
+        hcs = [st.prepare_head_constants(ta, W, None, dtype=dtype) for W in Ws]
         bufs = [torch.rand(batch, dim, device="cuda").to(dtype) for _ in range(4)]
+        bs = [hc.b.to(dtype) for hc in hcs]
         it = itertools.count()
-        t = {
-            "ms": time_cuda(lambda: st.fused_soft_head(bufs[next(it) % 4], hc, want_aux=False)),
-            "plain_ms": time_cuda(lambda: st.soft_head_reference(bufs[next(it) % 4], hc, False)),
-            "bound": head_bound_ms(hc, batch, dim),
-        }
-        wall, device, _, _ = profile_ms(
-            lambda: st.fused_soft_head(bufs[next(it) % 4], hc, want_aux=False))
-        kernel = {k: v for k, v in device.items() if "soft_head" in k}
-        print(f"[times] soft_head {label} W={str(dtype)[6:]}: events {t['ms']:.5f} ms, plain "
-              f"{t['plain_ms']:.5f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
-              f"profiler device {json.dumps(kernel)} ms, wall {wall:.5f} ms per call",
-              flush=True)
+
+        def pick():
+            i = next(it)
+            return bufs[i % 4], i % w_sets
+
+        def kernel():
+            f, j = pick()
+            return st.fused_soft_head(f, hcs[j], want_aux=False)
+
+        def plain():
+            f, j = pick()
+            return st.soft_head_reference(f, hcs[j], False)
+
+        def addmm():
+            f, j = pick()
+            return torch.addmm(bs[j], f, hcs[j].W)
+
+        t = {"ms": time_cuda(kernel), "plain_ms": time_cuda(plain),
+             "addmm_ms": time_cuda(addmm), "bound": head_bound_ms(hcs[0], batch, dim)}
+        plan = st.last_launch["plan"]
+        t["instance"] = plan.instance
+        wall, device, _, _ = profile_ms(kernel)
+        k_ms = {k[:40]: round(v, 5) for k, v in device.items() if "soft_head" in k}
+        print(f"[times] soft_head {label} W={str(dtype)[6:]} ({w_sets} W sets, {plan.instance} "
+              f"instance, q={plan.q}, rows={plan.rows}, grid {st.last_launch['grid']}): kernel "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, addmm (classifier only) "
+              f"{t['addmm_ms']:.5f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
+              f"profiler device {json.dumps(k_ms)} ms, wall {wall:.5f} ms per call", flush=True)
         out[dtype] = t
-        del bufs
+        del bufs, hcs
     return out
 
 
@@ -671,7 +767,7 @@ def main() -> int:
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
                                  "ResNet18 shape B=8192 D=512 C=10")
     head_vit = time_soft_head(trees["Imagenet1000"].arrays, VIT_BATCH, VIT_DIM, 8,
-                              "ViT head shape B=256 D=768 C=1000")
+                              "ViT head shape B=256 D=768 C=1000", HEAD_W_SETS)
     ln_t = time_layernorm()
 
     def with_rates(times: dict, batch: int) -> dict:
@@ -715,6 +811,14 @@ def main() -> int:
         "vit_shape_plain_ms": head_vit[f32]["plain_ms"],
         "vit_shape_bound_ms": head_vit[f32]["bound"][0],
         "vit_shape_bound_by": head_vit[f32]["bound"][1],
+        "vit_shape_bf16_ms": head_vit[bf16]["ms"],
+        "vit_shape_bf16_plain_ms": head_vit[bf16]["plain_ms"],
+        "vit_shape_bf16_bound_ms": head_vit[bf16]["bound"][0],
+        "instance_by_shape": {"resnet18": head_resnet[f32]["instance"],
+                              "vit_b16": head_vit[f32]["instance"]},
+        "classifier_addmm_ms": {  # yardstick for the classifier part only
+            "resnet18": head_resnet[f32]["addmm_ms"], "resnet18_bf16": head_resnet[bf16]["addmm_ms"],
+            "vit_b16": head_vit[f32]["addmm_ms"], "vit_b16_bf16": head_vit[bf16]["addmm_ms"]},
     }, {
         "name": "layernorm",
         "route": "cuda",

@@ -50,6 +50,41 @@ def _graph_tree(Digraph, Tree, spec):
     return Tree.from_graph(G, leaves, classes=[f"class{i}" for i in range(len(leaves))])
 
 
+def grouped_tree(C, K, dag=False):
+    """A port Tree of C leaves grouped K at a time up to one root (a lone
+    node at the end of a level moves up as it is); with ``dag``, every 7th
+    leaf also hangs under the parent of the leaf K places on."""
+    from nbdt_torch.hierarchy.digraph import Digraph
+    from nbdt_torch.tree import Tree
+
+    G = Digraph()
+    leaves = [f"f{i:08d}" for i in range(C)]
+    for i, w in enumerate(leaves):
+        G.add_node(w, label=f"leaf{i}")
+    parent, level, n = {}, list(leaves), 0
+    while len(level) > 1:
+        nxt = []
+        for i in range(0, len(level), K):
+            group = level[i:i + K]
+            if len(group) == 1:
+                nxt.append(group[0])
+                continue
+            inner = f"n{n:07d}"
+            n += 1
+            G.add_node(inner, label=inner)
+            for child in group:
+                G.add_edge(inner, child)
+                parent[child] = inner
+            nxt.append(inner)
+        level = nxt
+    if dag:
+        for i in range(0, C, 7):
+            other = parent[leaves[(i + K) % C]]
+            if other != parent[leaves[i]]:
+                G.add_edge(other, leaves[i])
+    return Tree.from_graph(G, leaves)
+
+
 def tree_pair(name):
     """(nbdt_tpu Tree, nbdt_torch Tree) for a vendored dataset's induced
     graph, or for "synthetic" / "dag"."""
@@ -169,7 +204,8 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.gpu
 def test_soft_head_kernel_matches_plain_on_gpu():
-    """Kernel vs its plain version on the card, small sizes, both dtypes."""
+    """Kernel vs its plain version on the card, both dtypes: small sizes,
+    then both instances of the kernel across batch sizes and trees."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from nbdt_torch.hierarchy.digraph import Digraph
@@ -189,6 +225,31 @@ def test_soft_head_kernel_matches_plain_on_gpu():
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+
+    # Both kernel instances: ragged batches, C either side of the plan's
+    # switch at 32 classes, K=3, DAGs and a 1000-class tree, aux on and off.
+    trees = {"synthetic K=3": (ta, 64), "DAG C=3": (_graph_tree(Digraph, Tree, DAG).arrays, 64),
+             "C=32": (grouped_tree(32, 2).arrays, 64), "C=33 K=3": (grouped_tree(33, 3).arrays, 64),
+             "DAG C=40": (grouped_tree(40, 2, dag=True).arrays, 64),
+             "Imagenet1000": (Tree("Imagenet1000").arrays, 768)}
+    instances = set()
+    for name, (arrays, D) in trees.items():
+        W = rng.randn(D, arrays.num_classes).astype(np.float32) / np.sqrt(D)
+        for B in (1, 17, 259):
+            x = torch.as_tensor(np.abs(rng.randn(B, D)).astype(np.float32), device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                hc = st.prepare_head_constants(arrays, W, rng.randn(arrays.num_classes),
+                                               dtype=dtype)
+                for want_aux in (True, False):
+                    got = st.fused_soft_head(x.to(dtype), hc, want_aux=want_aux)
+                    want = st.soft_head_reference(x.to(dtype), hc, want_aux=want_aux)
+                    torch.cuda.synchronize()
+                    plan = st.last_launch["plan"]
+                    instances.add(plan.instance)
+                    print(f"{name} B={B} {dtype} aux={want_aux}: {plan.instance} q={plan.q}")
+                    for g, w in zip(got, want):
+                        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    assert instances == {"stream", "cluster"}
 
 
 @pytest.mark.gpu
