@@ -212,9 +212,10 @@ def print_profile(label: str, wall: float, device: dict, ops: dict, seen: dict) 
           f"{json.dumps({k: round(v, 4) for k, v in top_ops})}", flush=True)
 
 
-def ptxas_report(name: str) -> None:
-    """One line per kernel instance of a library: ptxas registers and spills."""
-    entry = None
+def ptxas_report(name: str) -> list:
+    """ptxas registers and spills of each kernel instance of a library, one
+    line each."""
+    entry, out = None, []
     for line in _build.build_logs.get(name, "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -224,8 +225,9 @@ def ptxas_report(name: str) -> None:
             spills = line.strip()
         if entry and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            print(f"[build] {name} {entry}: {regs} registers; {spills}", flush=True)
+            out.append(f"{entry}: {regs} registers; {spills}")
             entry = None
+    return out
 
 
 def head_inputs(ta, batch: int, dim: int, seed: int):
@@ -416,28 +418,45 @@ def check_layernorm_kernel() -> dict:
 
 def check_conv3x3_kernel(inp: probe.ProbeInputs) -> float:
     """B3 vs its plain version with the probe's weight and bias: the probe's
-    parity batch (64 x 32 x 32), N=3 at 32x32, an odd map (N=5 at 7x5: the
-    edges and a partial tile) and the probe's batch of 8192, each at
-    assert_close's bf16 defaults. Returns the largest max-abs error."""
+    parity batch (64 x 32 x 32), N=3 and N=1 at 32x32, an odd map (N=5 at
+    7x5: the edges and a partial tile), 9x64 (two column tiles and a ragged
+    band), 33x70 (three column tiles, the last ragged, and a ragged band)
+    and the probe's batch of 8192, each at assert_close's bf16 defaults.
+    Prints each launch's plan, held to the kernel's own shared-memory sum.
+    Returns the largest max-abs error."""
     g = torch.Generator(device="cuda").manual_seed(4)
     cases = [inp.x_parity,
              torch.randn(3, 32, 32, 64, device="cuda", generator=g).bfloat16(),
+             torch.randn(1, 32, 32, 64, device="cuda", generator=g).bfloat16(),
              torch.randn(5, 7, 5, 64, device="cuda", generator=g).bfloat16(),
+             torch.randn(2, 9, 64, 64, device="cuda", generator=g).bfloat16(),
+             torch.randn(2, 33, 70, 64, device="cuda", generator=g).bfloat16(),
              inp.x]
+    lib = conv._library()
     max_err = 0.0
     for x in cases:
         got = conv.conv3x3_bias_relu(x, inp.w, inp.b)
         want = conv.conv3x3_bias_relu_reference(x, inp.w, inp.b)
         torch.cuda.synchronize()
+        plan = conv.last_plan
         case = "conv3x3 N={} {}x{}".format(*x.shape[:3])
+        smem = lib.nbdt_conv3x3_smem_bytes(plan.stages)
+        check(smem == plan.smem_bytes,
+              f"{case}: plan says {plan.smem_bytes} bytes of shared memory, the kernel {smem}")
         check(got.dtype == torch.bfloat16 and got.shape == x.shape, f"{case}: dtype/shape")
         torch.testing.assert_close(got, want, msg=lambda m: f"{case}: {m}")
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         max_err = max(max_err, err)
-        print(f"[kernel] {case}: max-abs err {err:.3g}, share of elements that differ "
-              f"{float((diff > 0).float().mean()):.3g}", flush=True)
+        print(f"[kernel] {case} [band {plan.band_rows} rows, {plan.col_tiles} "
+              f"column tiles, pitch {plan.pitch}, {plan.stages} stages, {plan.smem_bytes} B "
+              f"shared memory, grid {plan.grid} over {plan.tiles} tiles]: max-abs err "
+              f"{err:.3g}, share of elements that differ {float((diff > 0).float().mean()):.3g}",
+              flush=True)
         del got, want, diff
+    print(f"[kernel] conv3x3 plan at the probe's shape: {conv.last_plan}; ptxas "
+          f"{ptxas_report('conv3x3') or 'not reported (library built earlier)'}",
+          flush=True)
     return max_err
 
 
@@ -742,7 +761,8 @@ def main() -> int:
         _build.load_library(name)
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
     for name in kernels:
-        ptxas_report(name)
+        for line in ptxas_report(name):
+            print(f"[build] {name} {line}", flush=True)
 
     # The conv probe's seeded draws (tools/probe_pallas_conv.py's), on the card
     t0 = time.perf_counter()

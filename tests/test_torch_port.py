@@ -285,8 +285,10 @@ def test_layernorm_kernel_matches_plain_on_gpu():
 @pytest.mark.gpu
 def test_conv3x3_kernel_matches_plain_on_gpu():
     """Kernel vs its plain version on the card: N in {1, 3} on the probe's
-    32x32 map, an odd 7x5 map (edges, a partial tile) and 6x33 (a second,
-    ragged column tile); bf16 assert_close defaults; one launch per call."""
+    32x32 map, an odd 7x5 map (edges, a partial tile), 6x33 (a second,
+    ragged column tile), 9x64 (two column tiles, a ragged band) and 33x70
+    (three column tiles, the last ragged, and a ragged band); bf16
+    assert_close defaults; one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from nbdt_torch.ops import conv3x3
@@ -295,7 +297,7 @@ def test_conv3x3_kernel_matches_plain_on_gpu():
     w = torch.randn(3, 3, 64, 64, device="cuda", generator=g) * 0.05
     b = torch.randn(64, device="cuda", generator=g) * 0.01
     for n in (1, 3):
-        for h, wd in ((32, 32), (7, 5), (6, 33)):
+        for h, wd in ((32, 32), (7, 5), (6, 33), (9, 64), (33, 70)):
             x = torch.randn(n, h, wd, 64, device="cuda", generator=g).bfloat16()
             before = conv3x3.launches
             got = conv3x3.conv3x3_bias_relu(x, w, b)
@@ -304,4 +306,4 @@ def test_conv3x3_kernel_matches_plain_on_gpu():
             torch.cuda.synchronize()
             assert got.dtype == torch.bfloat16 and got.shape == (n, h, wd, 64)
             torch.testing.assert_close(got, want)
-    assert conv3x3.conv3x3_bias_relu(x[:0], w, b).shape == (0, 6, 33, 64)
+    assert conv3x3.conv3x3_bias_relu(x[:0], w, b).shape == (0, *x.shape[1:])
