@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through its entry points, with seeded random
+Drives the port's four paths through its entry points, with seeded random
 weights: soft-NBDT ResNet18 on the CIFAR10 induced hierarchy at batch 8192,
 soft-NBDT ViT-B/16 (224px, 1000 classes, bf16 stream, the fused LayerNorm
-kernel) on the Imagenet1000 induced hierarchy at batch 256, and the 3x3 conv
+kernel) on the Imagenet1000 induced hierarchy at batch 256, the 3x3 conv
 probe (``nbdt_torch.tools.probe_pallas_conv``: ResNet18's L1 conv, 64 -> 64
-channels at 32px, + bias + ReLU, bf16) at batch 8192. Builds every
+channels at 32px, + bias + ReLU, bf16) at batch 8192, and tree-supervised
+ResNet18 training on CIFAR10-shaped synthetic data at batch 512 (the
+trainer's cached and host-fed modes, the three tree losses, a SoftTreeLoss
+refresh, the CLI, save and resume, a card-vs-CPU step). Builds every
 hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
 PyTorch version, checks each path's launch counts and outputs, and times the
 kernels and requests with CUDA events. Exits nonzero, printing no result,
@@ -19,7 +22,7 @@ record.
 Phases: device, build, the conv probe's inputs, kernel vs plain (soft_head,
 layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
 its f32 gate, its serving fn, the conv probe path (one request, then the
-probe's parity and timing phases), times.
+probe's parity and timing phases), the training path, times.
 """
 
 from __future__ import annotations
@@ -28,23 +31,30 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from nbdt_torch import SoftNBDT, make_serving_fn
+from nbdt_torch import losses as tl
+from nbdt_torch.data import DataLoader, LearnableSyntheticDataset, PrefetchLoader
 from nbdt_torch.data.transforms import CIFAR_MEAN, CIFAR_STD, IMAGENET_MEAN, IMAGENET_STD
 from nbdt_torch.hierarchy.digraph import Digraph
+from nbdt_torch.main import main as train_cli
 from nbdt_torch.models import ResNet18, vit_b16
 from nbdt_torch.ops import _build
 from nbdt_torch.ops import conv3x3 as conv
 from nbdt_torch.ops import layernorm as ln
 from nbdt_torch.ops import soft_traversal as st
+from nbdt_torch.rules import to_device_tree
 from nbdt_torch.tools import probe_pallas_conv as probe
+from nbdt_torch.trainer import TrainConfig, Trainer, lr_schedule, make_optimizer, make_train_step
 from nbdt_torch.tree import Tree
 
 BATCH = 8192  # the flagship serving batch (bench.py's)
@@ -68,6 +78,20 @@ HEAD_W_SETS = 17
 # f32 tolerance of the head kernel vs its plain version: both sum in f32 in
 # different orders over D=512 or 768 products and up to 17 path steps.
 TOL = 1e-4
+# Training path: ResNet18 at 32px, 10 classes, batch 512 (TrainConfig's and
+# the reference's), 10240 training images (20 steps an epoch), 2048 test, a
+# 2-epoch run of the reference's recipe (its schedule then drops lr 0.1 10x
+# at step 0 and again at epoch 1; held at 0.1 from scratch, with no
+# warm-up, the soft loss rose over 2 epochs in a CPU run at batch 256).
+TRAIN_BATCH = 512
+TRAIN_SIZE = 10240
+TEST_SIZE = 2048
+TRAIN_EPOCHS = 2
+# Batch of the card-vs-CPU step (a CPU step of ResNet18 at 512 takes ~10 s).
+XSTEP_BATCH = 64
+# Relative tolerance of that step's loss: the same f32 step (TF32 off) on two
+# devices sums its convolutions and reductions in other orders.
+XSTEP_RTOL = 1e-4
 # f32 tolerance of the LayerNorm kernel vs its plain version
 # (tests/test_vit_variants.py's): the two sum a row of D values in f32 in
 # different orders, and rsqrtf is within 2 ulp.
@@ -354,9 +378,11 @@ def check_soft_head_kernel(trees: dict) -> float:
     ViT head's shape (B=256, D=768) on Imagenet1000; ragged B (1, 17, 259)
     at both instances; C = 32 and 33, on either side of the plan's switch
     (K=2 and K=3); C = 300 (3 ranks), 1500 (two classifier passes a rank)
-    and 3000 (a shallower W ring, the lists left in global memory); a DAG at each instance; D=100 (bf16 W then takes the
-    cluster instance with unvectorized feats). f32 and bf16 W, aux on and
-    off. Checks that both instances ran. Returns the largest leaf max-abs
+    and 3000 (the lists left in global memory); a DAG at each instance;
+    D=100 (bf16 W then takes the cluster instance with unvectorized feats);
+    the wide heads D=2048 (CIFAR100 at B=8192, Imagenet1000 at B=256) and
+    D=2560 (TinyImagenet200 at B=259). f32 and bf16 W, aux on and off.
+    Checks that both instances ran. Returns the largest leaf max-abs
     error."""
     cases = [(name, tree, BATCH, FEAT_DIM) for name, tree in trees.items()]
     cases.append(("Imagenet1000", trees["Imagenet1000"], VIT_BATCH, VIT_DIM))
@@ -368,6 +394,11 @@ def check_soft_head_kernel(trees: dict) -> float:
               ("grouped C=300 K=3", grouped_tree(300, 3), 259, FEAT_DIM),
               ("grouped C=1500 K=2", grouped_tree(1500, 2), 259, FEAT_DIM),
               ("grouped C=3000 K=2", grouped_tree(3000, 2), 37, VIT_DIM),
+              # wide heads the cluster instance once refused (C1): ResNet50's
+              # D=2048, EfficientNet-B7's 2560, at a ragged batch
+              ("CIFAR100", trees["CIFAR100"], BATCH, 2048),
+              ("Imagenet1000", trees["Imagenet1000"], VIT_BATCH, 2048),
+              ("TinyImagenet200", trees["TinyImagenet200"], 259, 2560),
               ("DAG C=3", grouped_tree(3, 2, dag=True), 17, FEAT_DIM),
               ("DAG C=40", grouped_tree(40, 2, dag=True), 259, FEAT_DIM),
               ("CIFAR10", trees["CIFAR10"], 17, 100)]
@@ -652,6 +683,212 @@ def run_vit_path(tree: Tree) -> dict:
     }
 
 
+class PrecisionSpy(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records (operand shapes, float32 matmul precision) of every matrix
+    product dispatched while it is active, forward and backward."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                    torch.ops.aten.bmm.default):
+            shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+            self.calls.append((shapes, torch.get_float32_matmul_precision()))
+        return func(*args, **(kwargs or {}))
+
+
+def check_tree_matmul_precision(model, x: torch.Tensor, y: torch.Tensor, jt) -> int:
+    """Under a process-wide "medium" f32 precision (TF32 for the backbone),
+    a forward and backward of the soft and hard tree losses on the card:
+    every product that touches the tree's N*K slots runs at "highest", in
+    both passes (two products a loss forward, two backward). Returns their
+    count."""
+    S = jt.num_inodes * jt.max_children
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        spy = PrecisionSpy()
+        with spy:
+            logits = model(x.permute(0, 3, 1, 2))
+            (tl.soft_tree_sup_loss(logits, y, jt) + tl.hard_tree_sup_loss(logits, y, jt)).backward()
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+        model.zero_grad(set_to_none=True)
+    tree = [prec for shapes, prec in spy.calls if any(S in shape for shape in shapes)]
+    check(len(tree) == 6 and set(tree) == {"highest"},
+          f"tree-loss products and their precisions: {tree}")
+    return len(tree)
+
+
+def train_run(label: str, cfg: TrainConfig, model, trainloader, testloader, tree,
+              criterion_state=None) -> tuple:
+    """Trains TRAIN_EPOCHS epochs through a Trainer on the card; gates that
+    every step's loss is finite and that the epoch-1 mean loss is below the
+    epoch-0 mean. Returns (trainer, report): per epoch the device ms a step
+    (CUDA events around the epoch), the host-clock ms a step (the epoch ends
+    in a sync) and images/s; the test accuracy."""
+    tr = Trainer(cfg, model, trainloader, testloader, tree=tree)
+    if criterion_state is not None:
+        tr.criterion_state = criterion_state(tr)
+    epochs = []
+    for epoch in range(TRAIN_EPOCHS):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        stats = tr.train_epoch(epoch)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        losses = stats["step_losses"]
+        check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
+              f"{label} epoch {epoch}: step losses {losses}")
+        steps = len(losses)
+        device_ms = start.elapsed_time(end) / steps
+        epochs.append({"steps": steps, "mean_loss": float(np.mean(losses)),
+                       "device_ms_per_step": device_ms, "host_ms_per_step": wall / steps,
+                       "images_per_s": cfg.batch_size / device_ms * 1e3})
+    check(epochs[1]["mean_loss"] < epochs[0]["mean_loss"],
+          f"{label}: epoch-1 mean loss {epochs[1]['mean_loss']} is not below epoch 0's "
+          f"{epochs[0]['mean_loss']}")
+    acc = tr.evaluate(TRAIN_EPOCHS - 1, checkpoint=False)
+    print(f"[train] {label}: " + "; ".join(
+        f"epoch {i}: {e['steps']} steps, mean loss {e['mean_loss']:.4f}, "
+        f"{e['device_ms_per_step']:.3f} device ms/step, {e['host_ms_per_step']:.3f} host ms/step, "
+        f"{e['images_per_s']:.1f} images/s" for i, e in enumerate(epochs))
+        + f"; test accuracy {acc:.2f}%", flush=True)
+    return tr, {"epochs": epochs, "test_acc": acc}
+
+
+def run_training_path(workdir: Path) -> dict:
+    """Tree-supervised ResNet18 training (10 classes, 32px, batch 512, the
+    CIFAR10 induced tree) on learnable synthetic data, f32 with TF32 off:
+    1. SoftTreeSupLoss in cached mode, 2. HardTreeSupLoss host-fed through
+    PrefetchLoader, 3. SoftTreeLoss whose tree is regenerated from the live
+    weights at epoch 1, 4. the CLI with no hierarchy (induced from the fresh
+    model), 5. save and resume, 6. one step on the card against the same
+    step on the CPU; and the tree-loss products' precision. Every kernel's
+    launch count stays 0: training runs the plain rules."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainset = LearnableSyntheticDataset(10, size=TRAIN_SIZE, seed=0)
+    testset = LearnableSyntheticDataset(10, size=TEST_SIZE, seed=0, train=False)
+    testloader = DataLoader(testset, TRAIN_BATCH, transform=testset.transform_val(),
+                            drop_last=False, pad_last=True)
+    cfg = dict(dataset="CIFAR10", arch="ResNet18", batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+               checkpoint_dir=str(workdir))
+    torch.manual_seed(20)
+    init = ResNet18(10)
+    torch.cuda.synchronize()
+    reset_launches()
+
+    # 1. SoftTreeSupLoss, cached mode
+    cached_cfg = TrainConfig(loss="SoftTreeSupLoss", cache_dataset=True, **cfg)
+    cached_loader = DataLoader(trainset, TRAIN_BATCH, shuffle=True,
+                               transform=trainset.transform_train())
+    tr1, soft = train_run("SoftTreeSupLoss cached", cached_cfg, init, cached_loader, testloader,
+                          Tree("CIFAR10"))
+    # 2. HardTreeSupLoss, host-fed through PrefetchLoader (the short last batch trains)
+    host_loader = PrefetchLoader(DataLoader(trainset, TRAIN_BATCH, shuffle=True,
+                                            transform=trainset.transform_train(),
+                                            drop_last=False))
+    tr2, hard = train_run("HardTreeSupLoss host-fed", TrainConfig(loss="HardTreeSupLoss", **cfg),
+                          init, host_loader, testloader, Tree("CIFAR10"))
+    xb = torch.as_tensor(trainset.images[:TRAIN_BATCH], device="cuda")
+    yb = torch.as_tensor(trainset.labels[:TRAIN_BATCH], device="cuda")
+    xn = ((xb.float() / 255.0 - torch.as_tensor(CIFAR_MEAN, device="cuda"))
+          / torch.as_tensor(CIFAR_STD, device="cuda"))  # a host-fed batch, on the card
+    print_profile("ResNet18 train step, batch 512, f32, HardTreeSupLoss",
+                  *profile_ms(lambda: tr2.train_step(xn, yb, 1.0, 1.0, tr2.step_count), n=5))
+    # 3. SoftTreeLoss: CE first, then the tree regenerated from the card's live weights
+    stl_tree = Tree("CIFAR10")
+
+    def soft_tree_loss(tr):
+        return tl.SoftTreeLoss(tree=stl_tree, arch="ResNet18", checkpoint_path=str(workdir),
+                               model_fn=lambda: tr.model, tree_start_epochs=1,
+                               tree_update_every_epochs=1, tree_update_end_epochs=2)
+
+    stl_cfg = TrainConfig(loss="SoftTreeLoss", cache_dataset=True, tree_start_epochs=1,
+                          tree_update_every_epochs=1, tree_update_end_epochs=2, **cfg)
+    tr3, stl = train_run("SoftTreeLoss cached, refresh at epoch 1", stl_cfg, init,
+                         cached_loader, testloader, Tree("CIFAR10"), soft_tree_loss)
+    check((workdir / "graph-epoch1.json").exists() and tr3.jt is tr3.criterion_state.jt,
+          "SoftTreeLoss: no refresh at epoch 1")
+    stl["induced_nodes"] = len(stl_tree.G)
+    print(f"[train] SoftTreeLoss refreshed its tree at epoch 1 from the live weights: "
+          f"{stl['induced_nodes']} nodes", flush=True)
+
+    # 4. The CLI, no --hierarchy: the tree is induced from the fresh model
+    t0 = time.perf_counter()
+    cli_acc = train_cli(["--synthetic", "--dataset", "CIFAR10", "--arch", "ResNet18", "--loss",
+                         "SoftTreeSupLoss", "--epochs", "1", "--no-progress",
+                         "--checkpoint-dir", str(workdir / "cli")])
+    graph = workdir / "cli" / "CIFAR10" / "graph-induced-ResNet18.json"
+    check(graph.exists(), f"CLI: no induced tree at {graph}")
+    cli = {"test_acc": cli_acc, "seconds": time.perf_counter() - t0,
+           "induced_nodes": len(Tree("CIFAR10", path_graph=str(graph)).G)}
+    print(f"[train] python -m nbdt_torch.main --synthetic ... --epochs 1: test accuracy "
+          f"{cli_acc:.2f}%, induced tree of {cli['induced_nodes']} nodes, "
+          f"{cli['seconds']:.1f} s", flush=True)
+
+    # 5. Save, then resume into a fresh trainer
+    path = tr1.save(TRAIN_EPOCHS, soft["test_acc"])
+    tr5 = Trainer(cached_cfg, ResNet18(10), cached_loader, testloader, tree=Tree("CIFAR10"))
+    tr5.load(path)
+    resumed_acc = tr5.evaluate(TRAIN_EPOCHS, checkpoint=False)
+    check(resumed_acc == soft["test_acc"] and not tr5.optimizer.state,
+          f"resume: accuracy {resumed_acc} vs {soft['test_acc']}, momentum kept")
+    seen = []
+    tr5.optimizer.register_step_pre_hook(lambda opt, a, k: seen.append(opt.param_groups[0]["lr"]))
+    tr5.train_epoch(TRAIN_EPOCHS)
+    lr_at = lr_schedule(cached_cfg, TRAIN_SIZE // TRAIN_BATCH)
+    first = TRAIN_EPOCHS * (TRAIN_SIZE // TRAIN_BATCH)
+    check(seen == [lr_at(first + i) for i in range(len(seen))] and len(seen) > 0,
+          f"resume: learning rates {seen[:3]}... off the schedule from step {first}")
+    resume = {"test_acc": resumed_acc, "first_step": first, "lr": seen[0]}
+    print(f"[train] resumed at step {first} (lr {seen[0]:.3g}, the schedule's): test accuracy "
+          f"{resumed_acc:.2f}%, equal to the saved trainer's", flush=True)
+
+    # 6. One step on the card and the same step on the CPU, from one init and batch
+    x = torch.as_tensor(trainset.images[:XSTEP_BATCH])
+    y = torch.as_tensor(trainset.labels[:XSTEP_BATCH])
+    xstep = {}
+    for dev in ("cuda", "cpu"):
+        model = ResNet18(10)
+        model.load_state_dict(init.state_dict())
+        model = model.to(dev, memory_format=torch.channels_last)
+        step = make_train_step(model, make_optimizer(cached_cfg, model.parameters()), lr_at,
+                               "SoftTreeSupLoss", to_device_tree(tr1.tree.arrays, dev),
+                               normalize=(trainset.mean, trainset.std))
+        m = step(x.to(dev), y.to(dev), 1.0, 1.0, 0)
+        xstep[dev] = (float(m["loss"]), model.linear.weight.detach().cpu())
+    rel = abs(xstep["cuda"][0] - xstep["cpu"][0]) / abs(xstep["cpu"][0])
+    wdiff = float((xstep["cuda"][1] - xstep["cpu"][1]).abs().max())
+    check(rel <= XSTEP_RTOL, f"card vs CPU step: loss {xstep['cuda'][0]} vs {xstep['cpu'][0]}")
+    print(f"[train] one step at batch {XSTEP_BATCH}, card vs CPU: loss {xstep['cuda'][0]:.7f} vs "
+          f"{xstep['cpu'][0]:.7f} (relative {rel:.3g}, tolerance {XSTEP_RTOL}), classifier "
+          f"weight max |diff| after the step {wdiff:.3g}", flush=True)
+
+    n_products = check_tree_matmul_precision(tr1.model, xn, yb, tr1.jt)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"training path launched kernels: {launches}")
+    print(f"[train] tree-loss products at \"highest\" under \"medium\", forward and backward: "
+          f"{n_products}; kernel launches over the training path: {json.dumps(launches)}",
+          flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"batch": TRAIN_BATCH, "image": 32, "classes": 10, "train_images": TRAIN_SIZE,
+            "launches": launches, "soft_cached": soft, "hard_host_fed": hard,
+            "soft_tree_loss": stl, "cli": cli, "resume": resume,
+            "card_vs_cpu_step": {"batch": XSTEP_BATCH, "loss_cuda": xstep["cuda"][0],
+                                 "loss_cpu": xstep["cpu"][0], "relative": rel,
+                                 "classifier_max_abs_diff": wdiff},
+            "tree_products_highest": n_products}
+
+
 def time_layernorm() -> dict:
     """B2 at the ViT-B shape (50,432 x 768), f32 and bf16: the kernel, its
     plain version and F.layer_norm on the same tensors. Two rotating inputs
@@ -772,6 +1009,7 @@ def main() -> int:
 
     # Kernels vs their plain versions
     trees = {"CIFAR10": Tree("CIFAR10"), "CIFAR100": Tree("CIFAR100"),
+             "TinyImagenet200": Tree("TinyImagenet200"),
              "Imagenet1000": Tree("Imagenet1000"), "synthetic-K3": synthetic_tree()}
     head_err = check_soft_head_kernel(trees)
     ln_err = check_layernorm_kernel()
@@ -782,12 +1020,18 @@ def main() -> int:
     vit = run_vit_path(trees["Imagenet1000"])
     conv_probe = run_conv_probe_path(conv_inp)
     del conv_inp
+    t0 = time.perf_counter()
+    train = run_training_path(Path(__file__).resolve().parent / "build" / "chip_smoke_train")
+    train["seconds"] = time.perf_counter() - t0
+    print(f"[train] the training path took {train['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
                                  "ResNet18 shape B=8192 D=512 C=10")
     head_vit = time_soft_head(trees["Imagenet1000"].arrays, VIT_BATCH, VIT_DIM, 8,
                               "ViT head shape B=256 D=768 C=1000", HEAD_W_SETS)
+    head_wide = time_soft_head(trees["CIFAR100"].arrays, BATCH, 2048, 9,
+                               "ResNet50-width head B=8192 D=2048 C=100")
     ln_t = time_layernorm()
 
     def with_rates(times: dict, batch: int) -> dict:
@@ -805,6 +1049,7 @@ def main() -> int:
         "conv3x3_probe": {"batch": BATCH, "launches_per_request": conv_probe["launches"],
                           "zero_share": conv_probe["zero_share"],
                           "parity": conv_probe["parity"], "timing": conv_probe["timing"]},
+        "train": train,
         "card": smi}}), flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -834,17 +1079,29 @@ def main() -> int:
         "vit_shape_bf16_ms": head_vit[bf16]["ms"],
         "vit_shape_bf16_plain_ms": head_vit[bf16]["plain_ms"],
         "vit_shape_bf16_bound_ms": head_vit[bf16]["bound"][0],
+        "cifar100_d2048_ms": head_wide[f32]["ms"],
+        "cifar100_d2048_plain_ms": head_wide[f32]["plain_ms"],
+        "cifar100_d2048_bound_ms": head_wide[f32]["bound"][0],
+        "cifar100_d2048_bound_by": head_wide[f32]["bound"][1],
+        "cifar100_d2048_bf16_ms": head_wide[bf16]["ms"],
+        "cifar100_d2048_bf16_plain_ms": head_wide[bf16]["plain_ms"],
+        "cifar100_d2048_bf16_bound_ms": head_wide[bf16]["bound"][0],
+        "launches_on_training_path": train["launches"]["soft_head"],
         "instance_by_shape": {"resnet18": head_resnet[f32]["instance"],
-                              "vit_b16": head_vit[f32]["instance"]},
+                              "vit_b16": head_vit[f32]["instance"],
+                              "cifar100_d2048": head_wide[f32]["instance"]},
         "classifier_addmm_ms": {  # yardstick for the classifier part only
             "resnet18": head_resnet[f32]["addmm_ms"], "resnet18_bf16": head_resnet[bf16]["addmm_ms"],
-            "vit_b16": head_vit[f32]["addmm_ms"], "vit_b16_bf16": head_vit[bf16]["addmm_ms"]},
+            "vit_b16": head_vit[f32]["addmm_ms"], "vit_b16_bf16": head_vit[bf16]["addmm_ms"],
+            "cifar100_d2048": head_wide[f32]["addmm_ms"],
+            "cifar100_d2048_bf16": head_wide[bf16]["addmm_ms"]},
     }, {
         "name": "layernorm",
         "route": "cuda",
         "source": "nbdt_torch/csrc/layernorm.cu",
         "replaces": "nbdt_tpu/ops/layernorm.py:24",
         "launches": vit["launches"]["layernorm"],
+        "launches_on_training_path": train["launches"]["layernorm"],
         "max_abs_err": ln_err[f32],
         "ms": ln_t[f32]["ms"],
         "plain_ms": ln_t[f32]["plain_ms"],
@@ -863,6 +1120,7 @@ def main() -> int:
         "replaces": "tools/probe_pallas_conv.py:146",
         "replaces_also": ["tools/probe_pallas_conv.py:201", "tools/probe_pallas_conv.py:270"],
         "launches": conv_probe["launches"]["conv3x3"],
+        "launches_on_training_path": train["launches"]["conv3x3"],
         "max_abs_err": conv_err,
         "ms": conv_t["kernel"]["ms"],
         "plain_ms": conv_t["plain"]["ms"],

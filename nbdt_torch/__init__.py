@@ -7,9 +7,13 @@ reads the hierarchy JSONs and wnid lists vendored under ``nbdt_tpu/`` by
 file path. Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
 
-  hierarchy/  host-side graph, wnid naming, classifier probe
+  hierarchy/  host-side graph, wnid naming, classifier probe, induced
+              hierarchies (ward clustering, generate_hierarchy)
   tree        host Tree + compilation to static arrays
   rules       soft and hard decision rules as plain PyTorch (exact f32)
+  losses      the tree-supervision losses
+  data/       CIFAR and synthetic datasets, batch transforms, loaders
+  trainer     TrainConfig, Trainer; main is the training CLI
   models      CIFAR ResNets and ViT-B/16, ViT-S/16 (NCHW), BN folding,
               flax -> torch converter, get_model
   ops         hand-written CUDA kernels (csrc/: soft head, LayerNorm) beside

@@ -44,9 +44,12 @@
 //    to 20 rows (the host sizes tiles so that the batch fills one wave of
 //    the clusters the card holds: 15 tiles of 18 rows at the ViT head).
 //     - Classifier: rank r computes x for its class slice (a multiple of
-//       128 classes, 16-byte aligned). The feats tile is staged once,
-//       transposed, in shared memory; W streams through a ring of up to
-//       four 64-row chunks by cp.async. Warp w takes 8 of each chunk's rows
+//       128 classes, 16-byte aligned). W streams through a ring of up to
+//       four 64-row chunks by cp.async. The feats tile follows in the same
+//       64-column chunks: a thread holds its share of chunk k + 1 in
+//       registers while the block works on chunk k, then stores it,
+//       transposed and widened to f32, into one of two chunk buffers, so
+//       shared memory does not grow with D. Warp w takes 8 of each chunk's rows
 //       and each lane 10 rows x 8 classes of sums, so the 18 values it loads
 //       a step feed 80 FMA; the warps' sums are then added in a fixed order.
 //       f32 FMA on CUDA cores: shared-memory instruction traffic, not the
@@ -84,6 +87,7 @@ constexpr int kChunk = 64;       // W rows per ring stage
 constexpr int kMaxStages = 4;    // W ring stages: up to three chunks in flight while one is used
 constexpr int kTileRows = 20;    // most batch rows of a cluster tile (a float4 multiple)
 constexpr int kFStride = 24;     // floats of one feats column: rows 0-9 at 0, rows 10-19 at 12
+constexpr int kFeatBytes = 2 * 4 * kChunk * kFStride;  // two transposed f32 feats chunks
 constexpr int kSmemLimit = 232448 - 2048;  // dynamic shared memory a block may use beside
                                            // the cluster instance's static arrays
 constexpr int kMaxLong = 256;    // long slot lists a block queues for its warps
@@ -372,8 +376,8 @@ __host__ __device__ inline size_t list_bytes(int C, int S, int nnz_s, int nnz_c)
          round_up(4ull * (C + 1), 16) + round_up(4ull * nnz_c, 16) + round_up(S, 16);
 }
 
-// Shared memory of the cluster instance (bytes). First region: the
-// transposed feats tile and the W ring; once x is made it holds this
+// Shared memory of the cluster instance (bytes). First region: two
+// transposed feats chunks and the W ring (D does not enter); once x is made it holds this
 // rank's rows of x (per group, [Cx] float4), of the slot log-probs ([S]
 // float4) and, where they fit, the tree lists. Then every rank's x for the
 // other ranks to pull, grouped by the rank that takes each row:
@@ -383,14 +387,14 @@ __host__ __device__ inline size_t cluster_smem(int D, int C, int S, int nnz_s, i
                                                bool lists) {
   const size_t g = rank_groups(kTileRows, q);
   const size_t ring = 1ull * stages * kChunk * kSlice * wbytes;
-  const size_t stage = 4ull * D * kFStride + (ring > kRedBytes ? ring : kRedBytes);
+  const size_t stage = kFeatBytes + (ring > kRedBytes ? ring : kRedBytes);
   const size_t tree = 16ull * (g * round_up(C, 4) + S) + (lists ? list_bytes(C, S, nnz_s, nnz_c) : 0);
   return round_up(stage > tree ? stage : tree, 16) + 16ull * q * g * class_slice;
 }
 
 // Whether the cluster instance stages the tree lists in shared memory: when
 // they fit beside everything else with a ring of `stages` W chunks (the
-// host picks the deepest ring that fits with the lists, else without).
+// host takes a four-stage ring, and the lists where they fit).
 __host__ __device__ inline bool lists_fit(int D, int C, int S, int nnz_s, int nnz_c, int wbytes,
                                           int q, int class_slice, int stages) {
   return cluster_smem(D, C, S, nnz_s, nnz_c, wbytes, q, class_slice, stages, true) <= kSmemLimit;
@@ -481,6 +485,66 @@ __device__ __forceinline__ void add4(float* a, float w, const float4& x) {
 // each half starts 16-byte aligned.
 __host__ __device__ inline int fcol(int r) { return r < 10 ? r : r + 2; }
 
+// One thread's share of a feats chunk (the tile's rows x kChunk columns) as
+// 16-byte vectors, held in registers between its load and its store.
+template <typename T>
+struct FeatChunk {
+  static constexpr int E = 16 / sizeof(T);                  // elements of a vector
+  static constexpr int kVecs = kTileRows * kChunk / E;      // vectors of a chunk
+  static constexpr int kPer = (kVecs + kThreads - 1) / kThreads;  // a thread's vectors
+  typename Vec<T>::type v[kPer];
+};
+
+// Starts loading columns [d0, d0 + kChunk) of the tile's rows (vector i:
+// row i % kTileRows, columns from (i / kTileRows) * E); zeros past `rows`
+// and past D. Needs D % E == 0 and 16-byte aligned rows.
+template <typename T>
+__device__ __forceinline__ void load_feats_chunk(FeatChunk<T>& fc, const T* ftile, int d0,
+                                                 int rows, int D) {
+  using FC = FeatChunk<T>;
+#pragma unroll
+  for (int u = 0; u < FC::kPer; ++u) {
+    const int i = threadIdx.x + u * kThreads, r = i % kTileRows;
+    const int d = d0 + (i / kTileRows) * FC::E;
+    if (i < FC::kVecs && r < rows && d < D)
+      fc.v[u] = __ldg(reinterpret_cast<const typename Vec<T>::type*>(
+          ftile + static_cast<size_t>(r) * D + d));
+    else
+      fc.v[u] = typename Vec<T>::type{0, 0, 0, 0};
+  }
+}
+
+// Stores a loaded chunk into `fs` ([kChunk, kFStride] f32), transposed:
+// neighbouring threads hold neighbouring rows, so the stores spread over
+// the banks.
+template <typename T>
+__device__ __forceinline__ void store_feats_chunk(float* fs, const FeatChunk<T>& fc) {
+  using FC = FeatChunk<T>;
+#pragma unroll
+  for (int u = 0; u < FC::kPer; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (i < FC::kVecs) {
+      const int r = i % kTileRows, d = (i / kTileRows) * FC::E;
+      float f[FC::E];
+      widen(fc.v[u], f);
+#pragma unroll
+      for (int t = 0; t < FC::E; ++t) fs[(d + t) * kFStride + fcol(r)] = f[t];
+    }
+  }
+}
+
+// The same chunk by scalar loads, straight into `fs`: for rows that are not
+// whole 16-byte vectors.
+template <typename T>
+__device__ __forceinline__ void copy_feats_chunk(float* fs, const T* ftile, int d0, int rows,
+                                                 int D) {
+  for (int i = threadIdx.x; i < kTileRows * kChunk; i += kThreads) {
+    const int r = i % kTileRows, dd = i / kTileRows, d = d0 + dd;
+    fs[dd * kFStride + fcol(r)] =
+        (r < rows && d < D) ? to_f32(ftile[static_cast<size_t>(r) * D + d]) : 0.f;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) soft_head_cluster(
     const T* __restrict__ feats, const T* __restrict__ W, Tree tree, Out out, int B, int D,
@@ -497,8 +561,8 @@ __global__ void __launch_bounds__(kThreads) soft_head_cluster(
   const size_t xo_offset =
       cluster_smem(D, C, S, nnz_s, nnz_c, sizeof(T), Q, class_slice, stages, lists) -
                            16ull * Q * rank_groups(kTileRows, Q) * class_slice;
-  float* ft_s = reinterpret_cast<float*>(smem);                         // [D, kFStride]
-  T* ring = reinterpret_cast<T*>(ft_s + static_cast<size_t>(D) * kFStride);  // [stages, kChunk, kSlice]
+  float* fs_s = reinterpret_cast<float*>(smem);                 // [2, kChunk, kFStride]
+  T* ring = reinterpret_cast<T*>(smem + kFeatBytes);            // [stages, kChunk, kSlice]
   float* red_s = reinterpret_cast<float*>(ring);   // [kWarps, kTileRows, kSlice] partial sums
   float4* x_s = reinterpret_cast<float4*>(smem);   // [G, Cx] this rank's rows of x, after barrier 1
   float4* l_s = x_s + static_cast<size_t>(G) * Cx;  // [S] this rank's rows of the slot log-probs
@@ -518,81 +582,58 @@ __global__ void __launch_bounds__(kThreads) soft_head_cluster(
     row_off[r] = ((r % Q) * G + jr / 4) * class_slice * 4 + jr % 4;
   }
 
-  // 1. Start the first W chunks, then stage the feats tile, transposed, as
-  //    f32 (rows fastest, so the stores spread over the banks; eight loads
-  //    a thread in flight), rows past `rows` zero.
-  for (int k = 0; k < stages - 1; ++k) {
-    if (k < nchunks)
-      load_w_chunk(ring + k * kChunk * kSlice, W, k * kChunk, c_begin, D, C, c_end, vec_w);
-    cp_async_commit();
-  }
-  if (vec_f) {
-    constexpr int E = 16 / sizeof(T);
-    using V = typename Vec<T>::type;
-    constexpr int kBatch = 8;
-    const int total = kTileRows * (D / E);
-    for (int i0 = threadIdx.x; i0 < total; i0 += kThreads * kBatch) {
-      V v[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kThreads, r = i % kTileRows;
-        if (i < total && r < rows)
-          v[u] = __ldg(reinterpret_cast<const V*>(ftile + static_cast<size_t>(r) * D +
-                                                  (i / kTileRows) * E));
-        else
-          v[u] = V{0, 0, 0, 0};
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kThreads, r = i % kTileRows, d = (i / kTileRows) * E;
-        if (i < total) {
-          float f[E];
-          widen(v[u], f);
-#pragma unroll
-          for (int t = 0; t < E; ++t) ft_s[(d + t) * kFStride + fcol(r)] = f[t];
-        }
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < kTileRows * D; i += kThreads) {
-      const int r = i % kTileRows, d = i / kTileRows;
-      ft_s[d * kFStride + fcol(r)] =
-          r < rows ? to_f32(ftile[static_cast<size_t>(r) * D + d]) : 0.f;
-    }
-  }
-
-  // 2. Classifier for this rank's class slice, kSlice classes a pass. Warp
-  //    w takes rows [8w, 8w + 8) of every W chunk; lane -> (row half rh,
-  //    class octet co, see octet_class): 10 rows x 8 classes of sums, so the 18 values a
+  // 1. Classifier for this rank's class slice, kSlice classes a pass. Each
+  //    pass starts its first W chunks by cp.async, puts feats chunk 0 in
+  //    buffer 0 and holds chunk 1 in registers; at chunk k every thread
+  //    stores chunk k + 1 into the other buffer and loads chunk k + 2, so
+  //    the feats loads ride one chunk ahead. Warp w takes rows [8w, 8w + 8)
+  //    of every W chunk; lane -> (row half rh, class octet co, see
+  //    octet_class): 10 rows x 8 classes of sums, so the 18 values a
   //    thread loads per step (two float4 and a float2 of feats, eight W)
   //    feed 80 FMA. The warps' sums are then added pairwise in a fixed
   //    order, and x goes to xo_s grouped by the rank that takes each row.
   const int rh = lane / 16, co = lane % 16;
+  constexpr int kFeatFloats = kChunk * kFStride;  // one feats chunk buffer
   for (int c0 = c_begin; c0 < c_end; c0 += kSlice) {
     float acc[10][8];
 #pragma unroll
     for (int r = 0; r < 10; ++r)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
-    if (c0 != c_begin) {  // later passes start their own first chunks
-      for (int k = 0; k < stages - 1; ++k) {
-        if (k < nchunks)
-          load_w_chunk(ring + k * kChunk * kSlice, W, k * kChunk, c0, D, C, c_end, vec_w);
-        cp_async_commit();
-      }
+    for (int k = 0; k < stages - 1; ++k) {
+      if (k < nchunks)
+        load_w_chunk(ring + k * kChunk * kSlice, W, k * kChunk, c0, D, C, c_end, vec_w);
+      cp_async_commit();
+    }
+    FeatChunk<T> fnext;
+    if (vec_f) {
+      load_feats_chunk(fnext, ftile, 0, rows, D);
+      store_feats_chunk(fs_s, fnext);
+      if (nchunks > 1) load_feats_chunk(fnext, ftile, kChunk, rows, D);
+    } else {
+      copy_feats_chunk(fs_s, ftile, 0, rows, D);
     }
     for (int k = 0; k < nchunks; ++k) {
       cp_async_wait_upto(stages - 2);
-      __syncthreads();  // chunk k (and, at k = 0, the feats tile) is in place for all
+      __syncthreads();  // W chunk k and feats chunk k are in place for all
       const int next = k + stages - 1;  // into the stage every thread finished with
       if (next < nchunks)
         load_w_chunk(ring + (next % stages) * kChunk * kSlice, W, next * kChunk, c0, D, C,
                      c_end, vec_w);
       cp_async_commit();
+      if (k + 1 < nchunks) {  // into the buffer every thread finished with at k - 1
+        float* fs_next = fs_s + ((k + 1) & 1) * kFeatFloats;
+        if (vec_f) {
+          store_feats_chunk(fs_next, fnext);
+          if (k + 2 < nchunks) load_feats_chunk(fnext, ftile, (k + 2) * kChunk, rows, D);
+        } else {
+          copy_feats_chunk(fs_next, ftile, (k + 1) * kChunk, rows, D);
+        }
+      }
       const int d_lo = warp * (kChunk / kWarps);
       const int d_hi = min(d_lo + kChunk / kWarps, D - k * kChunk);
       const T* wk = ring + (k % stages) * kChunk * kSlice;
-      const float* fk = ft_s + static_cast<size_t>(k) * kChunk * kFStride + 12 * rh;
+      const float* fk = fs_s + (k & 1) * kFeatFloats + 12 * rh;
 #pragma unroll 4
       for (int dd = d_lo; dd < d_hi; ++dd) {
         float w[8], f[10];
@@ -643,7 +684,7 @@ __global__ void __launch_bounds__(kThreads) soft_head_cluster(
   }
   cluster.sync();  // barrier 1: every rank's x is made; every feats tile is dead
 
-  // 3. Start staging the tree lists (where they fit), pull this rank's rows
+  // 2. Start staging the tree lists (where they fit), pull this rank's rows
   //    of x from every rank (distributed shared memory: 16 bytes a class,
   //    eight loads a thread in flight), then no block touches another's
   //    memory.
@@ -690,7 +731,7 @@ __global__ void __launch_bounds__(kThreads) soft_head_cluster(
   cp_async_wait<0>();
   cluster.sync();  // barrier 2: every pull is done, so any block may leave after this
 
-  // 4. The tree for this rank's rows, four at a time, in local shared
+  // 3. The tree for this rank's rows, four at a time, in local shared
   //    memory: slot logits (a thread per short list, a warp per long one,
   //    as at the root of a 1000-class tree), each node's log-softmax, then
   //    the leaf path sums.

@@ -1,4 +1,4 @@
-"""A minimal insertion-ordered directed graph with node-link JSON reading.
+"""A minimal insertion-ordered directed graph with node-link JSON IO.
 
 Counterpart of ``nbdt_tpu/hierarchy/digraph.py``. Insertion order is
 load-bearing: a node's child order is its ``succ`` insertion order, which is
@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import json
 from typing import Dict, Iterator, List, Optional, Tuple
+
+from ..utils import makeparentdirs
 
 
 class Digraph:
@@ -34,6 +36,9 @@ class Digraph:
         self._succ[parent][child] = None
         self._pred[child][parent] = None
 
+    def set_label(self, node: str, label: str) -> None:
+        self.add_node(node, label=label)
+
     @property
     def nodes(self) -> List[str]:
         return list(self._nodes)
@@ -47,6 +52,9 @@ class Digraph:
     def __len__(self) -> int:
         return len(self._nodes)
 
+    def attrs(self, node: str) -> dict:
+        return self._nodes[node]
+
     def label(self, node: str) -> str:
         return self._nodes[node].get("label", "")
 
@@ -55,6 +63,9 @@ class Digraph:
 
     def pred(self, node: str) -> List[str]:
         return list(self._pred[node])
+
+    def edges(self) -> List[Tuple[str, str]]:
+        return [(u, v) for u in self._nodes for v in self._succ[u]]
 
     def is_leaf(self, node: str) -> bool:
         return len(self._succ[node]) == 0
@@ -70,6 +81,37 @@ class Digraph:
             order.append(cur)
             stack.extend(reversed(self.succ(cur)))
         return order
+
+    def contracted(self, keep: str, remove: str) -> "Digraph":
+        """A copy with ``remove`` merged into ``keep``, as networkx's
+        ``contracted_nodes(G, keep, remove, self_loops=False)`` makes it:
+        ``keep``'s attributes win and ``remove``'s go into its
+        ``contraction`` dict (nearest first over repeated contractions); the
+        surviving edges keep their order and ``remove``'s edges, re-pointed
+        at ``keep``, come after them, in-edges first. Child order is
+        decision-path order, so this order matters."""
+        H = Digraph()
+        for node, attrs in self._nodes.items():
+            if node != remove:
+                H.add_node(node, **attrs)
+        contraction = dict(self._nodes[keep].get("contraction") or {})
+        contraction[remove] = {k: v for k, v in self._nodes[remove].items() if k != "contraction"}
+        if "contraction" in self._nodes[remove]:
+            contraction[remove]["contraction"] = self._nodes[remove]["contraction"]
+        H.add_node(keep, contraction=contraction)
+        for u in self._nodes:
+            if u == remove:
+                continue
+            for v in self._succ[u]:
+                if v != remove:
+                    H.add_edge(u, v)
+        for u in self._pred[remove]:
+            if u != keep:
+                H.add_edge(u, keep)
+        for v in self._succ[remove]:
+            if v != keep:
+                H.add_edge(keep, v)
+        return H
 
 
 def get_leaves(G: Digraph, root: Optional[str] = None) -> Iterator[str]:
@@ -120,6 +162,16 @@ def get_leaf_to_path(G: Digraph) -> Dict[str, List[Tuple[int, str]]]:
     return leaf_to_path
 
 
+def node_link_data(G: Digraph) -> dict:
+    return {
+        "directed": True,
+        "multigraph": False,
+        "graph": {},
+        "nodes": [{**G.attrs(node), "id": node} for node in G.nodes],
+        "links": [{"source": u, "target": v} for (u, v) in G.edges()],
+    }
+
+
 def node_link_graph(data: dict) -> Digraph:
     G = Digraph()
     for entry in data.get("nodes", []):
@@ -128,6 +180,13 @@ def node_link_graph(data: dict) -> Digraph:
     for link in data.get("links", []):
         G.add_edge(link["source"], link["target"])
     return G
+
+
+def write_graph(G: Digraph, path) -> None:
+    """The node-link JSON of the reference's hierarchy files."""
+    makeparentdirs(path)
+    with open(str(path), "w") as f:
+        json.dump(node_link_data(G), f)
 
 
 def read_graph(path) -> Digraph:

@@ -35,23 +35,69 @@ def clear_mini_corpus() -> None:
 
 
 class MiniSynset:
-    """Synset backed by a mini-corpus table (naming surface only)."""
+    """Synset backed by a mini-corpus table: the NLTK surface the builders
+    touch (``pos/offset/name/hypernyms``, ``common_hypernyms`` including
+    itself as NLTK's does, ``max_depth``)."""
 
     def __init__(self, wnid: str, table: dict):
         self.wnid = wnid
         self._table = table
 
+    def pos(self) -> str:
+        return self.wnid[0]
+
+    def offset(self) -> int:
+        return int(self.wnid[1:])
+
     def name(self) -> str:
         return self._table[self.wnid]["name"]
 
+    def hypernyms(self):
+        return [MiniSynset(w, self._table) for w in self._table[self.wnid].get("hypernyms", [])]
+
+    def _closure(self):
+        seen, frontier = [], [self]
+        while frontier:
+            cur = frontier.pop(0)
+            if cur.wnid in [s.wnid for s in seen]:
+                continue
+            seen.append(cur)
+            frontier.extend(cur.hypernyms())
+        return seen
+
+    def common_hypernyms(self, other):
+        mine = {s.wnid for s in self._closure()}
+        return [s for s in other._closure() if s.wnid in mine]
+
+    def max_depth(self) -> int:
+        hyps = self.hypernyms()
+        return 1 + max(h.max_depth() for h in hyps) if hyps else 0
+
+    def __eq__(self, other):
+        return isinstance(other, MiniSynset) and other.wnid == self.wnid
+
+    def __hash__(self):
+        return hash(self.wnid)
+
 
 class FakeSynset:
-    """Placeholder synset for generated (non-WordNet) nodes, and for real
-    wnids when no corpus can resolve them."""
+    """Placeholder synset for generated (non-WordNet) nodes, ``f<offset>``,
+    and for real wnids when no corpus can resolve them (``pos()`` keeps the
+    wnid's own letter, so :func:`synset_to_wnid` gives the wnid back)."""
 
     def __init__(self, wnid: str):
         assert isinstance(wnid, str)
         self.wnid = wnid
+
+    @staticmethod
+    def create_from_offset(offset: int) -> "FakeSynset":
+        return FakeSynset("f{:08d}".format(offset))
+
+    def offset(self) -> int:
+        return int(self.wnid[1:])
+
+    def pos(self) -> str:
+        return self.wnid[0]
 
     def name(self) -> str:
         return "(generated)"
@@ -89,6 +135,11 @@ def wnid_to_synset(wnid: str):
         return wn.synset_from_pos_and_offset(wnid[0], int(wnid[1:]))
     except Exception:  # offset unknown to the corpus
         return FakeSynset(wnid)
+
+
+def synset_to_wnid(synset) -> str:
+    """synset -> wnid: the pos letter and the 8-digit offset."""
+    return f"{synset.pos()}{synset.offset():08d}"
 
 
 def synset_to_name(synset) -> str:

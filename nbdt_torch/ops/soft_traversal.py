@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import itertools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -48,9 +47,10 @@ STREAM_WIDTHS = ((8, 4), (16, 2), (32, 1))  # streaming instance: (padded C, row
 MAX_RANKS = 8  # blocks of a cluster (the portable maximum)
 CLASS_SLICE = 128  # classes of one classifier pass in a cluster block
 W_CHUNK = 64  # W rows of one ring stage in a cluster block
-W_STAGES = (4, 3, 2)  # W ring stages of a cluster block, the most that fit
+W_STAGES = 4  # W ring stages of a cluster block: three chunks in flight while one is used
 TILE_ROWS = 20  # rows a cluster block has room for
 F_STRIDE = 24  # floats of one staged feats column in a cluster block
+FEAT_BYTES = 2 * 4 * W_CHUNK * F_STRIDE  # a cluster block's two transposed f32 feats chunks
 WARPS = 8  # warps of a block, both instances
 
 launches = 0  # kernel launches since the caller last reset it
@@ -178,13 +178,14 @@ def stream_smem_bytes(D: int, C: int, S: int, nnz_s: int, nnz_c: int, wbytes: in
 
 def cluster_smem_bytes(D: int, C: int, S: int, nnz_s: int, nnz_c: int, wbytes: int, q: int,
                        class_slice: int, stages: int, lists: bool) -> int:
-    """Shared memory of a cluster block: the transposed feats tile and the W
-    ring, later this rank's rows of x and of the slot log-probs and, with
+    """Shared memory of a cluster block: two transposed feats chunks and the
+    W ring (the feats arrive in the W ring's 64-column chunks, so D does not
+    enter), later this rank's rows of x and of the slot log-probs and, with
     ``lists``, the tree lists; then the rank's x for every rank to pull
     (``cluster_smem`` in the kernel source)."""
     groups = _cdiv(_cdiv(TILE_ROWS, q), 4)
     red = 4 * WARPS * TILE_ROWS * CLASS_SLICE  # the warps' partial sums of a pass
-    stage = 4 * D * F_STRIDE + max(stages * W_CHUNK * CLASS_SLICE * wbytes, red)
+    stage = FEAT_BYTES + max(stages * W_CHUNK * CLASS_SLICE * wbytes, red)
     tree = 16 * (groups * _round_up(C, 4) + S)
     if lists:
         tree += (_round_up(4 * (S + 1), 16) + 2 * _round_up(4 * nnz_s, 16)
@@ -219,9 +220,11 @@ def plan_soft_head(B: int, D: int, C: int, N: int, K: int, dtype: torch.dtype,
     q = min(MAX_RANKS, _cdiv(C, CLASS_SLICE))
     class_slice = _round_up(_cdiv(C, q), CLASS_SLICE)
     q = _cdiv(C, class_slice)  # every rank holds some classes
-    # the lists in shared memory first, then the deepest W ring that fits
-    for lists, stages in itertools.product((True, False), W_STAGES):
-        smem = cluster_smem_bytes(D, C, S, nnz_s, nnz_c, wbytes, q, class_slice, stages, lists)
+    # the lists in shared memory where they fit (the feats chunks ride the W
+    # ring, so a shallower ring would never make room: the tree region is
+    # the larger wherever the ring's is near the limit)
+    for lists in (True, False):
+        smem = cluster_smem_bytes(D, C, S, nnz_s, nnz_c, wbytes, q, class_slice, W_STAGES, lists)
         if smem <= SMEM_LIMIT:
             break
     else:
@@ -231,7 +234,7 @@ def plan_soft_head(B: int, D: int, C: int, N: int, K: int, dtype: torch.dtype,
             "plain rules (nbdt_torch.rules) for this tree")
     rows = min(max(1, block_b), TILE_ROWS)
     rows = min(rows, 16 if not clusters else max(16, _cdiv(B, clusters)))
-    return HeadPlan("cluster", rows, q, class_slice, smem, _cdiv(B, rows) * q, lists, stages)
+    return HeadPlan("cluster", rows, q, class_slice, smem, _cdiv(B, rows) * q, lists, W_STAGES)
 
 
 def head_plan(hc: HeadConstants, B: int, block_b: int = BLOCK_B,

@@ -12,8 +12,9 @@ programs over the static :class:`~nbdt_torch.tree.TreeArrays` constants:
          literal D-step walk on multi-path graphs.
 
 Node decisions are exact f32: the node-logit and path-sum matmuls run under
-:func:`exact_f32`, so a caller that turned TF32 on for its backbone does not
-reach them.
+:func:`exact_f32` in the forward and in the backward (:func:`exact_matmul`),
+so a caller that turned TF32 on for its backbone does not reach them, as
+JAX's ``Precision.HIGHEST`` covers the transposed products too.
 """
 
 from __future__ import annotations
@@ -41,6 +42,33 @@ def exact_f32():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+class _ExactMatmul(torch.autograd.Function):
+    """``a @ b`` under :func:`exact_f32` in both passes: autograd runs the
+    backward later, outside any context the forward opened."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with exact_f32():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with exact_f32():
+            if ctx.needs_input_grad[0]:
+                ga = grad @ b.T
+            if ctx.needs_input_grad[1]:
+                gb = a.T @ grad
+        return ga, gb
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2-d f32 ``a @ b`` in full f32, forward and backward."""
+    return _ExactMatmul.apply(a, b)
 
 
 class DeviceTreeArrays(NamedTuple):
@@ -94,8 +122,7 @@ def get_node_logits(logits: torch.Tensor, jt: DeviceTreeArrays) -> torch.Tensor:
     child's descendant leaves, as one matmul against the membership matrix."""
     B = logits.shape[0]
     N, K, C = jt.membership.shape
-    with exact_f32():
-        nl = logits.float() @ jt.membership.reshape(N * K, C).T
+    nl = exact_matmul(logits.float(), jt.membership.reshape(N * K, C).T)
     return nl.reshape(B, N, K)
 
 
@@ -148,8 +175,7 @@ def soft_leaf_log_probs(log_probs: torch.Tensor, jt: DeviceTreeArrays) -> torch.
     B = log_probs.shape[0]
     N, K, C = jt.under.shape
     safe = torch.where(jt.child_mask[None], log_probs, 0.0)
-    with exact_f32():
-        return safe.reshape(B, N * K) @ jt.under.reshape(N * K, C)
+    return exact_matmul(safe.reshape(B, N * K), jt.under.reshape(N * K, C))
 
 
 def soft_forward(logits: torch.Tensor, jt: DeviceTreeArrays) -> torch.Tensor:

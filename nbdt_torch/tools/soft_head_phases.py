@@ -33,7 +33,7 @@ STAMPS = 10
 # (instance, stamp index, text in the kernel source, insert "before" or "after")
 ANCHORS = [
     ("cluster", 0, "  const T* ftile = feats + static_cast<size_t>(row0) * D;\n", "after"),
-    ("cluster", 1, "  // 2. Classifier for this rank", "before"),
+    ("cluster", 1, "  // 1. Classifier for this rank", "before"),
     ("cluster", 2, "    // Every warp leaves its partial sums", "before"),
     ("cluster", 3, "  cluster.sync();  // barrier 1", "before"),
     ("cluster", 4, "  cluster.sync();  // barrier 1: every rank's x is made; every feats tile is dead\n",
@@ -50,7 +50,7 @@ ANCHORS = [
     ("stream", 2, "      for (int i = 0; i < VL; ++i) cur[r][i] = next[r][i];\n  }\n", "after"),
 ]
 PHASES = {
-    "cluster": ["stage feats", "classifier chunks", "classifier sums", "barrier 1 wait",
+    "cluster": ["set-up", "classifier chunks", "classifier sums", "barrier 1 wait",
                 "pull x + stage lists", "barrier 2 wait", "slot logits",
                 "softmax (after the slowest warp's lists)", "leaf sums"],
     "stream": ["stage W and lists", "warp 0's row groups"],

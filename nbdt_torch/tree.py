@@ -223,6 +223,21 @@ class Tree:
             ]
         return leaf_to_steps
 
+    def update_from_model(self, model, arch, dataset, classes=None, path_wnids=None,
+                          path_graph=None, force: bool = True) -> None:
+        """Regenerate the induced hierarchy from a live model's classifier
+        (``model`` an ``nn.Module``; SoftTreeLoss's refresh), write it to
+        ``path_graph`` and reload this tree from it. Regenerating is the
+        point, so ``force`` defaults to True."""
+        from .hierarchy.generate import generate_hierarchy
+
+        path_graph = generate_hierarchy(dataset=dataset, method="induced", arch=arch,
+                                        model=model, path=path_graph,
+                                        wnids=self.wnids_leaves, force=force)
+        self.load_hierarchy(dataset=dataset, path_graph=path_graph,
+                            path_wnids=path_wnids or self.path_wnids,
+                            classes=classes or self.classes, wnids_leaves=self.wnids_leaves)
+
     @property
     def arrays(self) -> "TreeArrays":
         if self._arrays is None:

@@ -87,7 +87,8 @@ def grouped_tree(C, K, dag=False):
 
 def tree_pair(name):
     """(nbdt_tpu Tree, nbdt_torch Tree) for a vendored dataset's induced
-    graph, or for "synthetic" / "dag"."""
+    graph, "<dataset>-<hierarchy>" for another vendored graph (e.g. the
+    multi-path "CIFAR100-wordnet"), or "synthetic" / "dag"."""
     from nbdt_tpu.hierarchy.digraph import Digraph as JDigraph
     from nbdt_tpu.tree import Tree as JTree
 
@@ -97,7 +98,9 @@ def tree_pair(name):
     if name in ("synthetic", "dag"):
         spec = SYNTHETIC if name == "synthetic" else DAG
         return _graph_tree(JDigraph, JTree, spec), _graph_tree(TDigraph, TTree, spec)
-    return JTree(name), TTree(name)
+    dataset, _, hierarchy = name.partition("-")
+    kw = {"hierarchy": hierarchy} if hierarchy else {}
+    return JTree(dataset, **kw), TTree(dataset, **kw)
 
 
 def random_variables(variables, seed=0):
@@ -150,6 +153,10 @@ def test_port_imports_nothing_of_jax():
         "import nbdt_torch, nbdt_torch.ops, nbdt_torch.models, nbdt_torch.serving\n"
         "import nbdt_torch.models.vit, nbdt_torch.ops.layernorm, nbdt_torch.ops.conv3x3\n"
         "import nbdt_torch.tools.probe_pallas_conv\n"
+        "import nbdt_torch.losses, nbdt_torch.metrics, nbdt_torch.trainer, nbdt_torch.main\n"
+        "import nbdt_torch.data, nbdt_torch.data.cifar, nbdt_torch.data.loader\n"
+        "import nbdt_torch.hierarchy.build, nbdt_torch.hierarchy.cluster\n"
+        "import nbdt_torch.hierarchy.generate\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -201,6 +208,23 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_probe(4, 2, 1)
 
+    # the training slice: the losses' tree constants, the trainer and the CLI
+    from nbdt_torch.data import DataLoader, SyntheticDataset
+    from nbdt_torch.losses import (CrossEntropyLoss, HardTreeSupLoss, SoftTreeLoss,
+                                   SoftTreeSupLoss)
+    from nbdt_torch.main import main
+    from nbdt_torch.trainer import TrainConfig, Trainer
+
+    for cls in (SoftTreeSupLoss, HardTreeSupLoss, SoftTreeLoss, CrossEntropyLoss):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(tree=tree)
+    ds = SyntheticDataset(7, size=8, image_size=8)
+    loader = DataLoader(ds, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(TrainConfig(batch_size=4), ResNet10(7), loader, loader, tree=tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--synthetic", "--arch", "ResNet10", "--epochs", "1", "--batch-size", "4"])
+
 
 @pytest.mark.gpu
 def test_soft_head_kernel_matches_plain_on_gpu():
@@ -231,7 +255,12 @@ def test_soft_head_kernel_matches_plain_on_gpu():
     trees = {"synthetic K=3": (ta, 64), "DAG C=3": (_graph_tree(Digraph, Tree, DAG).arrays, 64),
              "C=32": (grouped_tree(32, 2).arrays, 64), "C=33 K=3": (grouped_tree(33, 3).arrays, 64),
              "DAG C=40": (grouped_tree(40, 2, dag=True).arrays, 64),
-             "Imagenet1000": (Tree("Imagenet1000").arrays, 768)}
+             "Imagenet1000": (Tree("Imagenet1000").arrays, 768),
+             # the wide heads the cluster instance once refused (D no longer
+             # takes shared memory): ResNet50's 2048, EfficientNet-B7's 2560
+             "CIFAR100 D=2048": (Tree("CIFAR100").arrays, 2048),
+             "Imagenet1000 D=2048": (Tree("Imagenet1000").arrays, 2048),
+             "TinyImagenet200 D=2560": (Tree("TinyImagenet200").arrays, 2560)}
     instances = set()
     for name, (arrays, D) in trees.items():
         W = rng.randn(D, arrays.num_classes).astype(np.float32) / np.sqrt(D)

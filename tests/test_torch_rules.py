@@ -2,7 +2,9 @@
 
 Leaf log-probs agree within 1e-5 (f32, sums in another order); predictions,
 node predictions and decision-path wnids are equal. Leaf outputs are
-compared in log space, class probabilities in probability space.
+compared in log space, class probabilities in probability space. The port's
+rules are also held to ``tests/oracle.py``, the reference's per-node loops
+transcribed in numpy (f64).
 """
 
 import numpy as np
@@ -11,7 +13,10 @@ import torch
 
 from test_torch_port import tree_pair
 
-TREES = ["synthetic", "CIFAR10", "CIFAR100", "dag"]
+# "CIFAR100-wordnet" is the vendored WordNet graph: 49 inner nodes of up to 8
+# children (every vendored graph is a tree; "dag" is the multi-path case).
+TREES = ["synthetic", "CIFAR10", "CIFAR100", "TinyImagenet200", "Imagenet1000",
+         "CIFAR100-wordnet", "dag"]
 
 
 def _logits(ta, batch=32, seed=0):
@@ -101,3 +106,27 @@ def test_hard_walk_matches_closed_form(name):
         torch.testing.assert_close(tr.hard_traverse(outs.preds, jt), walk)
     else:
         torch.testing.assert_close(closed, walk)
+
+
+@pytest.mark.parametrize("name", TREES)
+def test_rules_match_oracle(name):
+    """Soft leaf probabilities, per-node probabilities and the hard walk of
+    the port against the oracle's loops over the tree's nodes."""
+    from oracle import oracle_all_node_outputs, oracle_hard_traverse, oracle_soft_traverse
+
+    import nbdt_torch.rules as tr
+
+    _, ttree = tree_pair(name)
+    logits = _logits(ttree.arrays, batch=16, seed=2)
+    jt = tr.to_device_tree(ttree.arrays, "cpu")
+    soft = tr.soft_outputs(torch.as_tensor(logits), jt)
+    want = oracle_soft_traverse(logits.astype(np.float64), ttree)
+    np.testing.assert_allclose(soft["class_probs"].numpy(), want, rtol=1e-4, atol=1e-7)
+    nodes = oracle_all_node_outputs(logits.astype(np.float64), ttree)
+    for i, node in enumerate(ttree.inodes):
+        k = node.num_classes
+        np.testing.assert_allclose(soft["node_probs"][:, i, :k].numpy(), nodes[node.wnid]["probs"],
+                                   rtol=1e-5, atol=1e-6)
+    if not ttree.arrays.is_multipath:  # the oracle's walk takes each node's first path
+        hard = tr.hard_outputs(torch.as_tensor(logits), jt)
+        np.testing.assert_array_equal(hard["preds"].numpy(), oracle_hard_traverse(logits, ttree))

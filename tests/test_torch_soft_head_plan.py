@@ -4,6 +4,8 @@ among its ranks, that the split is balanced, that shapes no instance fits
 are refused, and that a plain walk of the plan, rank by rank, gives
 ``soft_head_reference``'s output. CPU only: the plan is host code."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,7 @@ import torch
 from test_torch_port import DAG, SYNTHETIC, _graph_tree, grouped_tree as _grouped
 
 
+@functools.lru_cache(maxsize=None)
 def _tree(name):
     from nbdt_torch.hierarchy.digraph import Digraph
     from nbdt_torch.tree import Tree
@@ -143,12 +146,13 @@ def test_plan_refuses_what_no_instance_fits():
         plan_soft_head(8, 768, 20000, 19999, 2, torch.float32, 40000, 20000)
     with pytest.raises(ValueError, match="f32 or bf16"):
         plan_soft_head(8, 768, 10, 9, 2, torch.float16, 20, 10)
-    # wider trees keep fewer W chunks in flight, then leave the lists in
-    # global memory: 3000 classes still fit, 4000 do not
+    # wider trees leave the lists in global memory: 3000 classes still fit,
+    # 4000 do not; the feats chunks ride the W ring, so it keeps its four
+    # stages at every width
     plan = plan_soft_head(8, 768, 1000, 999, 2, torch.float32, 2000, 1000)
     assert (plan.stages, plan.lists_in_smem) == (4, True)
     plan = plan_soft_head(8, 768, 2000, 1999, 2, torch.float32, 4000, 2000)
-    assert (plan.stages, plan.lists_in_smem) == (3, True)
+    assert (plan.stages, plan.lists_in_smem) == (4, True)
     assert not plan_soft_head(8, 768, 3000, 2999, 2, torch.float32, 6000, 3000).lists_in_smem
     with pytest.raises(ValueError, match="no kernel instance fits"):
         plan_soft_head(8, 768, 4000, 3999, 2, torch.float32, 8000, 4000)
@@ -233,3 +237,79 @@ def test_phase_profiler_finds_every_phase_in_the_kernel_source():
     for instance, names in phases.PHASES.items():
         stamps = [k for inst, k, _, _ in phases.ANCHORS if inst == instance]
         assert stamps == list(range(len(names) + 1))
+
+
+# The widths of the heads the trees meet: ResNet18/34 and ViT-S (512), WRN-28-10
+# (640), ViT-B (768), DenseNet/ResNet variants (1024), EfficientNet (1280-2560),
+# ResNet50-152 (2048).
+WIDTHS = (512, 640, 768, 1024, 1280, 1536, 2048, 2560)
+VENDORED = ("CIFAR10", "CIFAR100", "TinyImagenet200", "Imagenet1000")
+
+
+def _reference_tile(ta, D, w_itemsize):
+    """The batch tile the JAX kernel's host fit picks for this head (its
+    node chunk, then the shrink loop from 512 rows), or None where it
+    raises: nbdt_tpu/ops/soft_traversal.py's own functions and budget."""
+    from nbdt_tpu.ops.soft_traversal import (
+        VMEM_TOTAL_BUDGET, _pick_chunk, _round_up, _vmem_bytes)
+
+    N, K, C = ta.membership.shape
+    Cp, Np = _round_up(C, 128), _round_up(N, 128)
+    cn = _pick_chunk(Np, K, Cp)
+    tb = 512
+    while tb > 8 and _vmem_bytes(tb, D, Cp, K, cn, True, w_itemsize) > VMEM_TOTAL_BUDGET:
+        tb //= 2
+    return tb if _vmem_bytes(tb, D, Cp, K, cn, True, w_itemsize) <= VMEM_TOTAL_BUDGET else None
+
+
+@pytest.mark.parametrize("B", [8192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", WIDTHS)
+@pytest.mark.parametrize("name", VENDORED)
+def test_plan_fits_wherever_the_reference_fits(name, D, dtype, B):
+    """Every head the TPU kernel's fit accepts gets a plan here, within the
+    card's shared memory; where the reference raises, the port may too."""
+    from nbdt_torch.ops.soft_traversal import SMEM_LIMIT, head_plan
+
+    hc = _constants(_tree(name), 8)  # the plan reads D from the call below
+    tile = _reference_tile(_tree(name).arrays, D, 4 if dtype == torch.float32 else 2)
+    if tile is None:
+        return
+    plan = head_plan(hc._replace(W=torch.empty(D, hc.num_classes, dtype=dtype)), B)
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name", ["CIFAR100", "TinyImagenet200", "Imagenet1000"])
+def test_cluster_shared_memory_does_not_grow_with_d(name):
+    """The cluster block stages feats in the W ring's 64-column chunks, so
+    its shared memory is the same at every head width."""
+    from nbdt_torch.ops.soft_traversal import cluster_smem_bytes, head_plan
+
+    hc = _constants(_tree(name), 8)
+    for dtype in (torch.float32, torch.bfloat16):
+        plans = [head_plan(hc._replace(W=torch.empty(D, hc.num_classes, dtype=dtype)), 256)
+                 for D in WIDTHS]
+        assert {p.instance for p in plans} == {"cluster"}
+        assert len({p.smem_bytes for p in plans}) == 1
+        p = plans[0]
+        S = hc.num_nodes * hc.max_children
+        sizes = {cluster_smem_bytes(D, hc.num_classes, S, hc.slot_cls.numel(),
+                                    hc.class_slot.numel(), 4 if dtype == torch.float32 else 2,
+                                    p.q, p.class_slice, p.stages, p.lists_in_smem)
+                 for D in (64, 768, 2048, 4096)}
+        assert sizes == {p.smem_bytes}
+
+
+@pytest.mark.parametrize("name,D", [("CIFAR100", 2048), ("Imagenet1000", 2048),
+                                    ("TinyImagenet200", 2560)])
+def test_plan_walk_at_wide_heads(name, D):
+    """The plan at the heads C1 used to refuse (ResNet50's D=2048,
+    EfficientNet-B7's 2560), walked rank by rank, gives the plain version."""
+    from nbdt_torch.ops.soft_traversal import head_plan, soft_head_reference
+
+    hc = _constants(_tree(name), D, seed=2)
+    feats = torch.as_tensor(np.abs(np.random.RandomState(3).randn(23, D)).astype(np.float32))
+    plan = head_plan(hc, feats.shape[0], clusters=2)
+    assert plan.instance == "cluster"
+    for g, w in zip(_walk(feats, hc, plan), soft_head_reference(feats, hc)):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)

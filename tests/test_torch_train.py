@@ -1,0 +1,483 @@
+"""nbdt_torch.trainer against nbdt_tpu.trainer: ResNet10 at 16px on the
+7-class synthetic tree, batch 8, as tests/test_train.py runs the JAX one.
+
+Both trainers start from one JAX init (the port's module through
+``state_dict_from_flax``) and see the same host batches (same seeds). After
+3 steps the losses agree within rtol 2e-5 and every parameter and
+BatchNorm statistic within rtol 2e-4 / atol 2e-5 (the two frameworks sum
+their convolutions in different orders; 3 SGD steps carry the difference
+on). torch updates ``running_var`` with the unbiased batch variance, flax
+with the biased one, so the JAX statistics are mapped through n/(n-1)
+before the comparison; neither side is changed.
+"""
+
+import functools
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_port import SYNTHETIC, _graph_tree
+
+STEPS = 3
+BATCH = 8
+IMG = 16
+C = 7
+
+
+@functools.lru_cache(maxsize=None)
+def _init():
+    """(flax module, variables) of one ResNet10 init, shared by the tests."""
+    from nbdt_tpu.models import init_model
+
+    return init_model("ResNet10", C, (IMG, IMG, 3))
+
+
+def _port_model(variables):
+    from nbdt_torch.models import ResNet10, state_dict_from_flax
+
+    model = ResNet10(C)
+    model.load_state_dict(state_dict_from_flax(variables, "ResNet10"), strict=True)
+    return model
+
+
+@functools.lru_cache(maxsize=None)
+def _trees():
+    from nbdt_tpu.hierarchy.digraph import Digraph as JDigraph
+    from nbdt_tpu.tree import Tree as JTree
+
+    from nbdt_torch.hierarchy.digraph import Digraph as TDigraph
+    from nbdt_torch.tree import Tree as TTree
+
+    return _graph_tree(JDigraph, JTree, SYNTHETIC), _graph_tree(TDigraph, TTree, SYNTHETIC)
+
+
+def _loaders(pkg, size=STEPS * BATCH, **kw):
+    """Host-fed train and padded eval loaders of ``pkg``'s synthetic set."""
+    import importlib
+
+    data = importlib.import_module(f"{pkg}.data")
+    ds = data.SyntheticDataset(num_classes=C, size=size, image_size=IMG)
+    tl = data.DataLoader(ds, BATCH, shuffle=True, transform=ds.transform_train(), **kw)
+    vl = data.DataLoader(ds, BATCH, transform=ds.transform_val(), drop_last=False,
+                         pad_last=True)
+    return tl, vl
+
+
+def _bn_counts(model):
+    """Elements n per channel each BatchNorm normalizes over at batch 8."""
+    counts, hooks = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, inp, name=name: counts.__setitem__(name, inp[0].numel()
+                                                               // inp[0].shape[1])))
+    with torch.no_grad():
+        model.eval()(torch.zeros(BATCH, 3, IMG, IMG))
+    for h in hooks:
+        h.remove()
+    return counts
+
+
+def _assert_state_matches(port_state, jax_variables, init_variables, counts, steps):
+    from nbdt_torch.models import state_dict_from_flax
+
+    want = state_dict_from_flax(jax_variables, "ResNet10")
+    init = state_dict_from_flax(init_variables, "ResNet10")
+    keep = 0.9 ** steps
+    assert set(want) == {k for k in port_state if not k.endswith("num_batches_tracked")}
+    for k, w in want.items():
+        if k.endswith("running_var"):  # flax's biased updates -> torch's unbiased ones
+            n = counts[k[: -len(".running_var")]]
+            w = keep * init[k] + n / (n - 1) * (w - keep * init[k])
+        torch.testing.assert_close(port_state[k].float(), w, rtol=2e-4, atol=2e-5, msg=k)
+
+
+@pytest.mark.parametrize("loss", ["CrossEntropyLoss", "SoftTreeSupLoss", "HardTreeSupLoss",
+                                  "SoftTreeLoss"])
+def test_three_host_fed_steps_match_jax(loss, tmp_path):
+    from nbdt_tpu.trainer import TrainConfig as JConfig, Trainer as JTrainer
+
+    from nbdt_torch.trainer import TrainConfig, Trainer
+
+    module, variables = _init()
+    jtree, ttree = _trees()
+    kw = dict(dataset="CIFAR10", arch="ResNet10", batch_size=BATCH, epochs=7, loss=loss,
+              lr=0.05, tree_supervision_weight=2.0, tree_start_epochs=1,
+              checkpoint_dir=str(tmp_path))
+    jtl, jvl = _loaders("nbdt_tpu")
+    ttl, tvl = _loaders("nbdt_torch")
+    jtr = JTrainer(JConfig(**kw), module, variables, jtl, jvl, tree=jtree)
+    ttr = Trainer(TrainConfig(**kw), _port_model(variables), ttl, tvl, tree=ttree, device="cpu")
+    j = jtr.train_epoch(0)
+    t = ttr.train_epoch(0)
+    assert len(t["step_losses"]) == STEPS and ttr.step_count == STEPS
+    for key in ("loss", "loss_xent", "loss_tree", "acc"):
+        np.testing.assert_allclose(t[key], j[key], rtol=2e-5, atol=1e-6, err_msg=key)
+    np.testing.assert_allclose(t["step_losses"][-1], j["loss"], rtol=2e-5)
+    _assert_state_matches(ttr.model.state_dict(), jtr.variables, variables,
+                          _bn_counts(_port_model(variables)), STEPS)
+    # eval mode (running statistics) over the padded test loader
+    assert ttr.evaluate(0, checkpoint=False) == jtr.evaluate(0, checkpoint=False)
+
+
+def test_lr_schedule_matches_optax_at_every_step():
+    """The port's per-step learning rate is optax's piecewise-constant
+    schedule at the step count, for every step of 7- and 10-epoch runs
+    (either side of the int(3E/7) and int(5E/7) drops) and of a run whose
+    milestones meet."""
+    import optax
+
+    from nbdt_tpu.trainer import TrainConfig as JConfig, lr_boundaries as jbounds
+
+    from nbdt_torch.trainer import TrainConfig, lr_boundaries, lr_schedule
+
+    for epochs, spe in ((7, 5), (10, 3), (1, 4), (200, 2)):
+        assert lr_boundaries(epochs, spe) == jbounds(epochs, spe)
+        schedule = optax.piecewise_constant_schedule(0.1, jbounds(epochs, spe))
+        lr_at = lr_schedule(TrainConfig(epochs=epochs, lr=0.1), spe)
+        for step in range(epochs * spe):
+            np.testing.assert_allclose(lr_at(step), float(schedule(step)), rtol=1e-6,
+                                       err_msg=f"E={epochs} spe={spe} step {step}")
+        assert JConfig().epochs == TrainConfig().epochs
+
+
+class _Flat(torch.nn.Module):
+    """A small stand-in for a backbone: NCHW -> logits."""
+
+    def __init__(self):
+        super().__init__()
+        self.linear = torch.nn.Linear(3 * IMG * IMG, C)
+
+    def forward(self, x):
+        return self.linear(x.flatten(1))
+
+
+def _lrs_seen(trainer):
+    seen = []
+    trainer.optimizer.register_step_pre_hook(
+        lambda opt, args, kwargs: seen.append(opt.param_groups[0]["lr"]))
+    return seen
+
+
+def test_trainer_steps_at_the_schedule_and_resumes_on_it(tmp_path):
+    """Through fit(): each optimizer step runs at lr_at(step); a trainer
+    loaded from the rolling checkpoint starts at the next epoch's first step
+    of the schedule with the momentum reset, as the JAX trainer's load
+    fast-forwards optax's count."""
+    from nbdt_torch.trainer import TrainConfig, Trainer, lr_schedule
+
+    tl, vl = _loaders("nbdt_torch", size=5 * BATCH)
+    cfg = TrainConfig(dataset="CIFAR10", arch="ResNet10", batch_size=BATCH, epochs=7, lr=0.1,
+                      loss="CrossEntropyLoss", checkpoint_dir=str(tmp_path))
+    torch.manual_seed(0)
+    tr = Trainer(cfg, _Flat(), tl, vl, device="cpu")
+    tr.config.epochs = 4  # stop early; the schedule stays the 7-epoch one
+    seen = _lrs_seen(tr)
+    tr.fit()
+    lr_at = lr_schedule(TrainConfig(epochs=7, lr=0.1), 5)
+    assert seen == [lr_at(i) for i in range(20)]
+    assert seen[14] == pytest.approx(0.1) and seen[15] == pytest.approx(0.01)  # epoch int(3E/7)
+    last = os.path.join(str(tmp_path), tr.checkpoint_fname() + "-last.pth")
+    meta = json.load(open(last[:-4] + ".json"))
+    assert meta["epoch"] == 4
+
+    tr2 = Trainer(TrainConfig(**{**cfg.__dict__, "epochs": 7}), _Flat(), tl, vl, device="cpu")
+    tr2.load(last)
+    assert tr2.start_epoch == 4 and tr2.step_count == 20
+    assert not tr2.optimizer.state  # momentum restarts
+    for k, v in tr.model.state_dict().items():
+        torch.testing.assert_close(tr2.model.state_dict()[k], v, rtol=0, atol=0)
+    seen2 = _lrs_seen(tr2)
+    tr2.train_epoch(4)
+    assert seen2 == [lr_at(i) for i in range(20, 25)]
+    assert tr2.evaluate(4, checkpoint=False) == tr.evaluate(4, checkpoint=False)
+
+
+def test_device_augment_given_jax_draws():
+    """The port's augment at JAX's own draws (offsets and flips drawn as
+    nbdt_tpu.trainer._device_augment draws them) gives JAX's bytes."""
+    import jax
+    import jax.numpy as jnp
+
+    from nbdt_tpu.trainer import _device_augment as jaug
+
+    from nbdt_torch.trainer import _device_augment as taug, draw_augment
+
+    x = np.random.RandomState(1).randint(0, 256, (32, IMG, IMG, 3), np.uint8)
+    for pad, flip, seed in ((3, True, 0), (4, True, 7), (0, True, 2), (2, False, 3)):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(jaug(jnp.asarray(x), key, crop_pad=pad, flip=flip))
+        kc, kf = jax.random.split(key)
+        offs = np.asarray(jax.random.randint(kc, (len(x), 2), 0, 2 * pad + 1)) if pad else None
+        flips = np.asarray(jax.random.bernoulli(kf, 0.5, (len(x),))) if flip else None
+        got = taug(torch.as_tensor(x), None if offs is None else torch.tensor(offs),
+                   None if flips is None else torch.tensor(flips), pad)
+        np.testing.assert_array_equal(got.numpy(), want)
+    g = torch.Generator().manual_seed(0)
+    offs, flips = draw_augment(g, 1000, 4, True)
+    assert offs.shape == (1000, 2) and int(offs.min()) == 0 and int(offs.max()) == 8
+    assert 400 < int(flips.sum()) < 600
+
+
+def _store():
+    from nbdt_torch.data import SyntheticDataset
+
+    ds = SyntheticDataset(num_classes=C, size=48, image_size=IMG)
+    return ds, torch.as_tensor(ds.images), torch.as_tensor(ds.labels)
+
+
+def _fresh(variables, lr=0.01):
+    from nbdt_torch.trainer import TrainConfig, make_optimizer, lr_schedule
+
+    model = _port_model(variables)
+    cfg = TrainConfig(batch_size=BATCH, epochs=1, lr=lr)
+    return model, make_optimizer(cfg, model.parameters()), lr_schedule(cfg, 1)
+
+
+def test_cached_step_matches_host_fed_step():
+    """Cached mode (the uint8 store on the device, gathered, normalized in
+    the step) on the identity permutation without augment takes the steps
+    the host-fed step takes on the same uint8 batches."""
+    import nbdt_torch.rules as tr
+    from nbdt_torch.trainer import make_train_step
+
+    _, variables = _init()
+    _, ttree = _trees()
+    jt = tr.to_device_tree(ttree.arrays, "cpu")
+    ds, images, labels = _store()
+    norm = (ds.mean, ds.std)
+    m1, o1, lr1 = _fresh(variables)
+    host = make_train_step(m1, o1, lr1, "SoftTreeSupLoss", jt, normalize=norm)
+    host_losses = [float(host(images[i * BATCH:(i + 1) * BATCH], labels[i * BATCH:(i + 1) * BATCH],
+                              1.0, 1.0, i)["loss"]) for i in range(2)]
+    m2, o2, lr2 = _fresh(variables)
+    cached = make_train_step(m2, o2, lr2, "SoftTreeSupLoss", jt, normalize=norm, cached=True,
+                             batch_size=BATCH, crop_pad=0, flip=False, steps_per_call=2)
+    ms = cached(images, labels, torch.arange(len(labels)), 0, torch.Generator(), 1.0, 1.0, 0)
+    np.testing.assert_allclose([float(m["loss"]) for m in ms], host_losses, rtol=1e-6)
+    for k, v in m1.state_dict().items():
+        torch.testing.assert_close(m2.state_dict()[k], v, rtol=1e-6, atol=1e-7, msg=k)
+
+
+def test_steps_per_call_equals_single_steps(tmp_path):
+    """K steps a call computes the trajectory of K calls of one step (6
+    steps an epoch: K=4 takes a call of 4 and one of 2), with the device
+    augment on."""
+    from nbdt_torch.data import DataLoader
+    from nbdt_torch.trainer import TrainConfig, Trainer
+
+    _, variables = _init()
+    _, ttree = _trees()
+    ds, _, _ = _store()
+    tl = DataLoader(ds, BATCH, shuffle=True, transform=ds.transform_train())
+    vl = DataLoader(ds, BATCH, transform=ds.transform_val(), drop_last=False, pad_last=True)
+
+    def run(k):
+        cfg = TrainConfig(dataset="CIFAR10", arch="ResNet10", batch_size=BATCH, epochs=2,
+                          loss="SoftTreeSupLoss", lr=0.05, checkpoint_dir=str(tmp_path),
+                          cache_dataset=True, cache_steps_per_call=k)
+        tr = Trainer(cfg, _port_model(variables), tl, vl, tree=ttree, device="cpu")
+        losses = sum((tr.train_epoch(e)["step_losses"] for e in range(2)), [])
+        return losses, tr.step_count, tr.evaluate(0, checkpoint=False)
+
+    one, four = run(1), run(4)
+    assert one[1] == four[1] == 12
+    np.testing.assert_allclose(four[0], one[0], rtol=1e-6)
+    assert four[2] == one[2]
+
+
+def test_remat_step_matches():
+    """remat (the forward recomputed in the backward) takes the same step,
+    BatchNorm running statistics included (updated once)."""
+    import nbdt_torch.rules as tr
+    from nbdt_torch.trainer import make_train_step
+
+    _, variables = _init()
+    _, ttree = _trees()
+    jt = tr.to_device_tree(ttree.arrays, "cpu")
+    ds, images, labels = _store()
+    out = []
+    for remat in (False, True):
+        m, o, lr = _fresh(variables)
+        step = make_train_step(m, o, lr, "HardTreeSupLoss", jt, remat=remat,
+                               normalize=(ds.mean, ds.std))
+        loss = float(step(images[:BATCH], labels[:BATCH], 1.0, 1.0, 0)["loss"])
+        out.append((loss, m.state_dict()))
+    assert out[0][0] == pytest.approx(out[1][0], rel=1e-6)
+    for k, v in out[0][1].items():
+        torch.testing.assert_close(out[1][1][k], v, rtol=1e-5, atol=1e-6, msg=k)
+
+
+def test_soft_tree_loss_pre_start_and_refresh(tmp_path):
+    """SoftTreeLoss: before tree_start_epochs the tree term is the criterion
+    (total = CE * (xw + tw)); at the start the step switches to the soft
+    tree term; every refresh epoch regenerates the induced tree from the
+    live model and the step uses it from that epoch on, also when a resume
+    lands on a refresh epoch."""
+    from nbdt_torch.hierarchy.build import build_induced_graph
+    from nbdt_torch.hierarchy.generate import get_classifier_from_module
+    from nbdt_torch.losses import SoftTreeLoss
+    from nbdt_torch.trainer import TrainConfig, Trainer
+    from nbdt_torch.tree import Tree
+
+    _, variables = _init()
+    wnids = [f"f{i:08d}" for i in range(C)]
+    model = _port_model(variables)
+    tree = Tree.from_graph(build_induced_graph(wnids, get_classifier_from_module(model)[0].T),
+                           wnids, classes=[f"c{i}" for i in range(C)])
+    tree.dataset = "CIFAR10"
+    tl, vl = _loaders("nbdt_torch")
+    cfg = TrainConfig(dataset="CIFAR10", arch="ResNet10", batch_size=BATCH, epochs=6,
+                      loss="SoftTreeLoss", tree_start_epochs=2, tree_update_every_epochs=2,
+                      tree_update_end_epochs=6, lr=0.05, checkpoint_dir=str(tmp_path))
+
+    def build(start_tree):
+        tr = Trainer(cfg, model, tl, vl, tree=start_tree, device="cpu")
+        tr.criterion_state = SoftTreeLoss(
+            tree=start_tree, arch="ResNet10", checkpoint_path=str(tmp_path),
+            model_fn=lambda: tr.model, tree_start_epochs=2, tree_update_every_epochs=2,
+            tree_update_end_epochs=6, device="cpu")
+        return tr
+
+    tr = build(tree)
+    jt0, step0 = tr.jt, tr.train_step
+    pre = tr.train_epoch(0)
+    assert tr.jt is jt0
+    assert pre["loss_tree"] == pytest.approx(pre["loss_xent"], rel=1e-6)
+    assert pre["loss"] == pytest.approx(pre["loss_xent"] * 2.0, rel=1e-6)
+    post = tr.train_epoch(2)  # refresh epoch: new tree, new step
+    assert tr.jt is not jt0 and tr.train_step is not step0
+    assert os.path.exists(tmp_path / "graph-epoch2.json")
+    assert post["loss_tree"] != pytest.approx(post["loss_xent"], rel=1e-3)
+    assert tr.train_epoch(3)["step_losses"] and tr.jt is tr.criterion_state.jt
+
+    # a resume whose first epoch is a refresh epoch takes the new tree too
+    tr2 = build(Tree.from_graph(tree.G, wnids, classes=tree.classes))
+    tr2.criterion_state.tree.dataset = "CIFAR10"
+    jt_start = tr2.jt
+    tr2.train_epoch(4)
+    assert tr2.jt is not jt_start and tr2.jt is tr2.criterion_state.jt
+
+
+def test_generalization_on_learnable_synthetic(tmp_path):
+    """The port's cached pipeline generalizes as the JAX package's does
+    (tests/test_train.py's test of the same name: same init, data and
+    recipe; the augment draws are the port's own): held-out backbone top-1
+    at least 85%, and the soft rules over the hierarchy induced from the
+    trained classifier at least 80%. It trains 10 epochs where the JAX test
+    trains 5: after 5, held-out accuracy still swings with the augment and
+    permutation draws, the JAX trainer's own too (the eval-mode BatchNorm
+    statistics catch up with the weights only once the learning rate has
+    dropped), and the 85% bar holds for some seeds and not others; after 10
+    it holds with a wide margin."""
+    from nbdt_torch.data import DataLoader, LearnableSyntheticDataset
+    from nbdt_torch.hierarchy.build import build_induced_graph
+    from nbdt_torch.hierarchy.generate import get_centers_from_state_dict
+    from nbdt_torch.rules import soft_forward, to_device_tree
+    from nbdt_torch.trainer import TrainConfig, Trainer
+    from nbdt_torch.tree import Tree
+
+    _, variables = _init()
+    _, ttree = _trees()
+    ds = LearnableSyntheticDataset(num_classes=C, size=256, image_size=IMG, train=True)
+    ds_test = LearnableSyntheticDataset(num_classes=C, size=96, image_size=IMG, train=False)
+    tl = DataLoader(ds, 32, shuffle=True, transform=ds.transform_train())
+    vl = DataLoader(ds_test, 32, transform=ds_test.transform_val(), drop_last=False,
+                    pad_last=True)
+    cfg = TrainConfig(dataset="CIFAR10", arch="ResNet10", batch_size=32, epochs=10,
+                      loss="SoftTreeSupLoss", lr=0.05, tree_supervision_weight=10.0,
+                      checkpoint_dir=str(tmp_path), cache_dataset=True, cache_crop_pad=2)
+    tr = Trainer(cfg, _port_model(variables), tl, vl, tree=ttree, device="cpu")
+    for e in range(cfg.epochs):
+        tr.train_epoch(e)
+    acc = tr.evaluate(0, checkpoint=False)
+    assert acc >= 85.0, f"held-out accuracy {acc}%"
+
+    wnids = ttree.wnids_leaves
+    centers = get_centers_from_state_dict(tr.model.state_dict())
+    induced = Tree.from_graph(build_induced_graph(wnids, centers), wnids,
+                              classes=[f"c{i}" for i in range(C)])
+    jt = to_device_tree(induced.arrays, "cpu")
+    correct = total = 0
+    tr.model.eval()
+    with torch.no_grad():
+        for x, y, valid in vl:
+            logits = tr.model(torch.as_tensor(x).permute(0, 3, 1, 2))
+            nbdt = soft_forward(logits, jt).numpy()[valid]
+            correct += int((nbdt.argmax(1) == np.asarray(y)[valid]).sum())
+            total += int(np.asarray(valid).sum())
+    nbdt_acc = correct / total * 100
+    assert nbdt_acc >= 80.0, f"NBDT held-out accuracy {nbdt_acc}%"
+
+
+def test_hard_loss_custom_criterion_in_the_step():
+    """The step's HardTreeSupLoss term routes a custom criterion through
+    every (sample, node) pair, as the JAX package's does."""
+    import jax.numpy as jnp
+
+    from nbdt_tpu.rules import to_device_tree as jdev
+    from nbdt_tpu.trainer import tree_term_fn as jterm
+
+    import nbdt_torch.rules as tr
+    from nbdt_torch.trainer import tree_term_fn
+
+    from test_torch_losses import _smoothed_ce
+
+    jtree, ttree = _trees()
+    rng = np.random.RandomState(3)
+    logits = rng.randn(BATCH, C).astype(np.float32)
+    targets = rng.randint(0, C, BATCH)
+    want = float(jterm("HardTreeSupLoss", jdev(jtree.arrays), 2.0,
+                       criterion_fn=_smoothed_ce(jnp))(jnp.asarray(logits), jnp.asarray(targets)))
+    got = float(tree_term_fn("HardTreeSupLoss", tr.to_device_tree(ttree.arrays, "cpu"), 2.0,
+                             criterion_fn=_smoothed_ce(torch))(torch.as_tensor(logits),
+                                                               torch.as_tensor(targets)))
+    assert got == pytest.approx(want, rel=1e-5)
+    assert tree_term_fn("CrossEntropyLoss", None, 1.0)(None, None) == 0.0
+
+
+def test_main_trains_on_synthetic_data(tmp_path, capsys):
+    """``python -m nbdt_torch.main --synthetic`` without --hierarchy induces
+    the tree from the fresh model's classifier, trains an epoch, writes the
+    checkpoints, and resumes from them."""
+    from nbdt_torch.main import main
+
+    args = ["--synthetic", "--dataset", "CIFAR10", "--arch", "ResNet10", "--loss",
+            "SoftTreeSupLoss", "--epochs", "1", "--batch-size", "8", "--device", "cpu",
+            "--checkpoint-dir", str(tmp_path), "--no-progress"]
+    acc = main(args)
+    assert 0 <= acc <= 100
+    graph = tmp_path / "CIFAR10" / "graph-induced-ResNet10.json"
+    assert graph.exists()
+    fname = "ckpt-CIFAR10-ResNet10-induced-ResNet10-SoftTreeSupLoss"
+    assert (tmp_path / f"{fname}-last.pth").exists()
+    main(args + ["--resume", "--eval", "--path-graph", str(graph)])
+    assert "Resumed from" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--analysis", "SoftEmbeddedDecisionRules"], "A11"), (["--pretrained"], "A12"),
+    (["--mesh"], "A13"), (["--zero"], "A13"), (["--exclude-labels", "3"], "A10"),
+    (["--profile", "out"], "A16"), (["--bn-impl", "bf16"], "A3"),
+    (["--checkpoint-backend", "orbax"], "A13")])
+def test_main_refuses_flags_not_ported(flag, item):
+    from nbdt_torch.main import main
+
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        main(["--synthetic", "--device", "cpu", *flag])
+
+
+def test_parser_keeps_the_flag_surface():
+    """Every flag of the JAX CLI is there, but --platform (the JAX backend),
+    whose counterpart is --device."""
+    from nbdt_tpu.main import get_parser as jparser
+
+    from nbdt_torch.main import get_parser
+
+    def flags(p):
+        return {s for a in p._actions for s in a.option_strings}
+
+    assert flags(jparser()) - flags(get_parser()) == {"--platform"}
