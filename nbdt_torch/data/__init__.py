@@ -1,7 +1,8 @@
 """Input pipelines: datasets, batch transforms and the loader.
 
-CIFAR10, CIFAR100 and the synthetic sets; the other datasets and the label
-subset wrappers are still to be ported."""
+CIFAR10, CIFAR100, TinyImagenet200, Imagenet1000 and the synthetic sets;
+the segmentation datasets and the label subset wrappers are still to be
+ported."""
 
 from .cifar import (
     CIFAR10,
@@ -11,6 +12,7 @@ from .cifar import (
     LearnableSyntheticDataset,
     SyntheticDataset,
 )
+from .imagenet import Imagenet1000, TinyImagenet200
 from .loader import DataLoader, PrefetchLoader
 from .transforms import (
     CIFAR_MEAN,
@@ -28,6 +30,8 @@ from .transforms import (
 DATASET_REGISTRY = {
     "CIFAR10": CIFAR10,
     "CIFAR100": CIFAR100,
+    "TinyImagenet200": TinyImagenet200,
+    "Imagenet1000": Imagenet1000,
     "SyntheticDataset": SyntheticDataset,
     "LearnableSyntheticDataset": LearnableSyntheticDataset,
 }

@@ -6,7 +6,12 @@ Counterpart of ``nbdt_tpu/main.py``, with its whole flag surface:
         --loss SoftTreeSupLoss --epochs 1
 
 Runs on the CUDA card unless ``--device cpu``. A flag whose module is still
-to be ported exits with an error that names its ROADMAP item.
+to be ported exits with an error that names its ROADMAP item. The NBDT
+accuracy of a trained backbone, as the reference evaluates it:
+
+    python -m nbdt_torch.main --dataset TinyImagenet200 --arch wrn28_10 \
+        --hierarchy induced-wrn28_10 --eval --checkpoint-path ckpt.pth \
+        --analysis SoftEmbeddedDecisionRules
 """
 
 from __future__ import annotations
@@ -17,9 +22,6 @@ import os
 # Flags whose modules the port does not have yet, and the ROADMAP item that
 # brings each.
 NOT_PORTED = {
-    "analysis": "A11",
-    "pretrained": "A12",
-    "checkpoint_path": "A12",
     "mesh": "A13",
     "zero": "A13",
     "multihost": "A13",
@@ -32,7 +34,7 @@ NOT_PORTED = {
 
 
 def get_parser() -> argparse.ArgumentParser:
-    from . import losses, metrics
+    from . import analysis, losses, metrics
     from .models import MODEL_REGISTRY
     from .utils import DATASETS
 
@@ -44,12 +46,17 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--lr", default=0.1, type=float)
     parser.add_argument("--loss", default="CrossEntropyLoss", choices=list(losses.names))
     parser.add_argument("--metric", default="top1", choices=metrics.names)
-    parser.add_argument("--analysis", default=None, help="not ported yet (A11)")
+    parser.add_argument("--analysis", default=None, choices=[None, *analysis.names],
+                        help="analyzer run beside the eval (Superclass and SuperclassNBDT: "
+                             "not ported yet (A10); VisualizeHierarchyInference: A9)")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--path-resume", default="")
     parser.add_argument("--eval", action="store_true")
-    parser.add_argument("--pretrained", action="store_true", help="not ported yet (A12)")
-    parser.add_argument("--checkpoint-path", default=None, help="not ported yet (A12)")
+    parser.add_argument("--pretrained", action="store_true",
+                        help="start from a released reference checkpoint: only a local "
+                             "--checkpoint-path (downloads are A12)")
+    parser.add_argument("--checkpoint-path", default=None,
+                        help="local reference .pth loaded strictly into the backbone")
     parser.add_argument("--name", default="")
     parser.add_argument("--data-root", default="./data")
     parser.add_argument("--download", action="store_true",
@@ -122,10 +129,19 @@ def get_parser() -> argparse.ArgumentParser:
 def refuse_not_ported(args) -> None:
     """Exit with an error naming the ROADMAP item of every flag that needs a
     module the port does not have yet."""
+    from .analysis import NOT_PORTED as ANALYZERS_NOT_PORTED
+
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"error: --{flag.replace('_', '-')} is not ported to nbdt_torch "
                              f"yet (ROADMAP {item})")
+    if args.analysis in ANALYZERS_NOT_PORTED:
+        raise SystemExit(f"error: --analysis {args.analysis} is not ported to nbdt_torch yet "
+                         f"(ROADMAP {ANALYZERS_NOT_PORTED[args.analysis]})")
+    if args.pretrained and not args.checkpoint_path:
+        raise SystemExit("error: --pretrained downloads a released checkpoint, and nbdt_torch "
+                         "downloads nothing: pass the local file to --checkpoint-path "
+                         "(downloads are ROADMAP A12)")
     if args.bn_impl == "bf16":
         raise SystemExit("error: --bn-impl bf16 is not ported to nbdt_torch yet (ROADMAP A3)")
     if args.checkpoint_backend == "orbax":
@@ -154,6 +170,36 @@ def build_datasets(args):
     return trainset, testset
 
 
+def build_analyzer(args, tree, testset, device):
+    """The ``--analysis`` plugin: rules-driven analyzers get the live tree
+    and the run's device, score savers ``--save-k``."""
+    if args.analysis is None:
+        return None
+    import inspect
+
+    from . import analysis
+
+    cls = getattr(analysis, args.analysis)
+    if cls is analysis.Noop:
+        return cls(classes=testset.classes)
+    if cls is analysis.ConfusionMatrix:
+        return cls(testset.classes)
+    params = inspect.signature(cls.__init__).parameters
+    kwargs = {}
+    if issubclass(cls, analysis.ScoreSave) and getattr(args, "save_k", None) is not None:
+        kwargs["save_k"] = args.save_k
+    if "tree" in params:
+        kwargs["tree"] = tree
+    if "device" in params:
+        kwargs["device"] = device
+    if cls is analysis.VisualizeDecisionNode:
+        if not args.visualize_decision_node_wnid:
+            raise SystemExit("error: --analysis VisualizeDecisionNode needs "
+                             "--visualize-decision-node-wnid")
+        kwargs["visualize_decision_node_wnid"] = args.visualize_decision_node_wnid
+    return cls(**kwargs)
+
+
 def main(argv=None):
     args = get_parser().parse_args(argv)
     refuse_not_ported(args)
@@ -161,6 +207,7 @@ def main(argv=None):
     import torch
 
     from .data import DataLoader, PrefetchLoader
+    from .model import load_checkpoint
     from .models import get_model
     from .trainer import TrainConfig, Trainer
     from .tree import Tree
@@ -174,9 +221,13 @@ def main(argv=None):
     trainset, testset = build_datasets(args)
     torch.manual_seed(0)
     model = get_model(args.arch, len(trainset.classes))
+    if args.checkpoint_path:
+        model.load_state_dict(load_checkpoint(args.checkpoint_path), strict=True)
+        Colors.green(f"==> Loaded pretrained weights for {args.arch}/{args.dataset} from "
+                     f"{args.checkpoint_path}")
 
     tree = None
-    if args.loss != "CrossEntropyLoss":
+    if args.loss != "CrossEntropyLoss" or args.analysis:
         path_graph = args.path_graph
         if args.hierarchy and not path_graph:
             path_graph = hierarchy_to_path_graph(args.dataset, args.hierarchy)
@@ -238,11 +289,13 @@ def main(argv=None):
         testset, args.batch_size, shuffle=False,
         transform=testset.transform_val(**dn) if hasattr(testset, "transform_val") else None,
         drop_last=False, pad_last=True)
-    if args.disable_test_eval:
-        Colors.red("WARNING: --disable-test-eval turns off the standard test metric, and the "
-                   "analyzers that would define one are not ported yet (A11).")
+    analyzer = build_analyzer(args, tree, testset, device)
+    if args.disable_test_eval and args.analysis in (None, "Noop"):
+        Colors.red("WARNING: --disable-test-eval turns off the standard test metric; pass "
+                   "--analysis to define one.")
     trainer = Trainer(
-        config, model, trainloader, testloader, tree=tree, show_progress=not args.no_progress,
+        config, model, trainloader, testloader, tree=tree, analyzer=analyzer,
+        show_progress=not args.no_progress,
         device_normalize=device_normalize, device_normalize_eval=device_normalize_eval,
         inverse_transform=testset.transform_val_inverse()
         if hasattr(testset, "transform_val_inverse") else None,
@@ -270,7 +323,13 @@ def main(argv=None):
             Colors.red(f"==> No checkpoint at {candidates[-1]}; starting fresh")
 
     if args.eval:
+        if analyzer is not None:
+            analyzer.start_epoch(0)
         acc = trainer.evaluate(0, checkpoint=False)
+        if analyzer is not None:
+            analyzer.end_epoch(0)
+        if args.disable_test_eval and hasattr(analyzer, "accuracy"):
+            acc = analyzer.accuracy  # the analyzer defines the metric
         Colors.green(f"==> Eval accuracy: {acc:.2f}%")
         return acc
     best = trainer.fit()

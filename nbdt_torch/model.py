@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from .hierarchy.generate import CLASSIFIER_NAMES, get_classifier_from_module
+from .models.convert import pytorchcv_wrn_keys
 from .models.fold import fold_batchnorm
 from .ops.soft_traversal import fused_soft_head, prepare_head_constants
 from .rules import HardEmbeddedDecisionRules, SoftEmbeddedDecisionRules
@@ -34,7 +35,9 @@ class TaggedOutput(torch.Tensor):
 
 def load_checkpoint(path) -> dict:
     """A reference-keyed state dict from a local torch ``.pth`` file
-    (``net``/``state_dict`` wrapping and ``module.`` prefixes removed)."""
+    (``net``/``state_dict`` wrapping and ``module.`` prefixes removed; a
+    WRN's keys in pytorchcv's grammar, whichever of the two it was saved
+    in)."""
     path = str(path)
     if not path.endswith((".pth", ".pt")):
         raise ValueError(
@@ -45,8 +48,11 @@ def load_checkpoint(path) -> dict:
     for key in ("net", "state_dict"):
         if isinstance(data, dict) and isinstance(data.get(key), dict):
             data = data[key]
-    return {(k[len("module."):] if k.startswith("module.") else k): v
+    data = {(k[len("module."):] if k.startswith("module.") else k): v
             for k, v in data.items()}
+    if any(k.startswith("features.init_block.") for k in data):
+        data = pytorchcv_wrn_keys(data)
+    return data
 
 
 class NBDT:

@@ -1,20 +1,25 @@
-"""Backbones of the port: the CIFAR ResNets, the ViTs, BN folding, the
-converter and the registry."""
+"""Backbones of the port: the CIFAR ResNets, the WideResNets, the ViTs, BN
+folding, the converter and the registry."""
 
 from typing import Callable, Dict
 
 import torch
 
-from .convert import state_dict_from_flax
+from .convert import pytorchcv_wrn_keys, state_dict_from_flax
 from .fold import fold_batchnorm
 from .resnet import BasicBlock, ResNet, ResNet10, ResNet18
 from .vit import ViT, vit_b16, vit_s16
+from .wideresnet import WRN, wrn28_10, wrn28_10_cifar10, wrn28_10_cifar100
 
 MODEL_REGISTRY: Dict[str, Callable] = {
     "ResNet10": ResNet10,
     "ResNet18": ResNet18,
     "vit_b16": vit_b16,
     "vit_s16": vit_s16,
+    "wrn28_10": wrn28_10,
+    "wrn28_10_cifar10": wrn28_10_cifar10,
+    "wrn28_10_cifar100": wrn28_10_cifar100,
+    "WRN": WRN,
 }
 
 

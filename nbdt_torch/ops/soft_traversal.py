@@ -117,18 +117,21 @@ def prepare_head_constants(
     )
 
 
-def soft_head_reference(feats: torch.Tensor, hc: HeadConstants, want_aux: bool = True):
+def soft_head_reference(feats: torch.Tensor, hc: HeadConstants, want_aux: bool = True,
+                        dtype: torch.dtype = torch.float32):
     """Plain PyTorch version of the kernel on the same inputs; the classifier
-    ``x`` is computed in f32. Returns what :func:`fused_soft_head` returns."""
+    ``x`` and the tree math are computed in ``dtype`` (f32, the kernel's; f64
+    gives an exact yardstick for both). Returns what :func:`fused_soft_head`
+    returns, in ``dtype``."""
     N, K, C = hc.num_nodes, hc.max_children, hc.num_classes
     S = N * K
     B = feats.shape[0]
     with exact_f32():
-        x = feats.float() @ hc.W.float() + hc.b
+        x = feats.to(dtype) @ hc.W.to(dtype) + hc.b.to(dtype)
     dev = feats.device
     slot_of = torch.repeat_interleave(torch.arange(S, device=dev), hc.slot_ptr.diff().long())
-    nl = torch.zeros(B, S, device=dev).index_add_(
-        1, slot_of, x[:, hc.slot_cls.long()] * hc.slot_w)
+    nl = torch.zeros(B, S, device=dev, dtype=dtype).index_add_(
+        1, slot_of, x[:, hc.slot_cls.long()] * hc.slot_w.to(dtype))
     valid = hc.slot_valid.bool().reshape(N, K)
     nl3 = nl.reshape(B, N, K)
     m = torch.where(valid, nl3, NEG).amax(-1, keepdim=True)
@@ -137,7 +140,8 @@ def soft_head_reference(feats: torch.Tensor, hc: HeadConstants, want_aux: bool =
     lse = torch.log(e.clamp_min(1e-30)) + m
     logp = torch.where(valid, nl3 - lse, 0.0).reshape(B, S)
     class_of = torch.repeat_interleave(torch.arange(C, device=dev), hc.class_ptr.diff().long())
-    leaf = torch.zeros(B, C, device=dev).index_add_(1, class_of, logp[:, hc.class_slot.long()])
+    leaf = torch.zeros(B, C, device=dev, dtype=dtype).index_add_(
+        1, class_of, logp[:, hc.class_slot.long()])
     if not want_aux:
         return (leaf,)
     return leaf, x, torch.where(valid.reshape(S), logp, NEG)

@@ -27,7 +27,7 @@ def make_serving_fn(
     """Build ``x [B,H,W,3] -> leaf probability distribution [B, C]``, the raw
     product of path probabilities (unnormalized; argmax is the prediction).
 
-    ``module`` is a port backbone (ResNet or ViT) with ``dtype`` and
+    ``module`` is a port backbone (ResNet, WRN or ViT) with ``dtype`` and
     ``clone(dtype=...)``. ``bf16`` runs it with a bfloat16 stream; node
     decisions always compute in f32. ``fold_bn`` folds BatchNorm into the
     conv weights first (ResNet family; anything else raises TypeError, as in

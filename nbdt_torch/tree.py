@@ -96,6 +96,9 @@ class Node:
     def is_root(self) -> bool:
         return len(self.pred) == 0
 
+    def wnid_to_child_index(self, wnid: str) -> int:
+        return [child.wnid for child in self.children].index(wnid)
+
     def build_class_mappings(self):
         if self.is_leaf():
             return {}, {}

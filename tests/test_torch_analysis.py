@@ -1,0 +1,318 @@
+"""nbdt_torch.analysis against nbdt_tpu.analysis on the same inputs.
+
+Every ported analyzer takes the same seeded logits, targets and [0, 1]
+images through the JAX analyzer and the port's (rules on the CPU): the
+accuracies and hit counts, the confusion matrix, the ignored count, the
+scores (within 1e-5: the rules sum in another order), the order of the
+saved samples, and the JPEGs written are held equal. ``device_eval``'s
+counts equal the host path's, in the trainer too. ``build_analyzer``
+constructs every ported name; the three still to be ported exit naming
+their ROADMAP item. Last, the CLI's ``--eval --checkpoint-path --analysis``
+on a tiny WRN prints the NBDT accuracy that the JAX CLI prints.
+"""
+
+import argparse
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_port import tree_pair
+
+PORTED = ["Noop", "ConfusionMatrix", "IgnoredSamples", "HardEmbeddedDecisionRules",
+          "SoftEmbeddedDecisionRules", "Entropy", "VisualizeDecisionNode", "NBDTEntropyMaxMin",
+          "NBDTEntropyBottom", "TopEntropy", "TopDifference"]
+SCORE_SAVERS = ["Entropy", "VisualizeDecisionNode", "NBDTEntropyMaxMin", "NBDTEntropyBottom",
+                "TopEntropy", "TopDifference"]
+
+
+def _inputs(C=7, batch=24, seed=0):
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(batch, C).astype(np.float32) * 2
+    targets = rng.randint(0, C, batch)
+    images = rng.rand(batch, 8, 8, 3).astype(np.float32)
+    return logits, targets, images
+
+
+def _pair(name, tmp_path=None, **kw):
+    """(JAX analyzer, port analyzer) of one name on the synthetic tree."""
+    import nbdt_tpu.analysis as ja
+
+    import nbdt_torch.analysis as ta
+
+    jtree, ttree = tree_pair("synthetic")
+    jkw, tkw = dict(kw), dict(kw)
+    if name in ("Noop", "ConfusionMatrix", "IgnoredSamples"):
+        jkw["classes"] = tkw["classes"] = jtree.classes
+    else:
+        if name not in ("Entropy", "TopEntropy", "TopDifference"):
+            jkw["tree"], tkw["tree"] = jtree, ttree
+            tkw["device"] = "cpu"
+        if name == "VisualizeDecisionNode":
+            jkw["visualize_decision_node_wnid"] = tkw["visualize_decision_node_wnid"] = \
+                jtree.wnids_leaves[3]
+        if name in SCORE_SAVERS:
+            pattern = "{epoch}/img-{suffix}-{i}-{score:.2e}.jpg"
+            jkw.update(save_k=4, path=str(tmp_path / "jax" / pattern))
+            tkw.update(save_k=4, path=str(tmp_path / "port" / pattern))
+    return getattr(ja, name)(**jkw), getattr(ta, name)(**tkw)
+
+
+def _run(an, batches, train=True):
+    """The trainer's lifecycle over a train pass and a test pass."""
+    an.start_epoch(0)
+    if train:
+        an.start_train(0)
+        an.update_batch(*batches[0])
+        an.end_train(0)
+    an.start_test(0)
+    for b in batches[1:]:
+        an.update_batch(*b)
+    an.end_test(0)
+    an.end_epoch(0)
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_analyzer_matches_jax(name, tmp_path, capsys):
+    j, t = _pair(name, tmp_path)
+    batches = [_inputs(seed=s) for s in range(3)]
+    if name == "IgnoredSamples":
+        for logits, _, _ in batches:
+            logits[::5, 0] = -1
+    # the counters of these two exist from start_test on, in both packages
+    train = name not in ("ConfusionMatrix", "IgnoredSamples")
+    _run(j, batches, train)
+    jout = capsys.readouterr().out
+    # the port takes CPU tensors as readily as numpy
+    _run(t, [(torch.as_tensor(x), torch.as_tensor(y), im) for x, y, im in batches], train)
+    tout = capsys.readouterr().out
+    assert t.epoch == j.epoch == 0
+    if name == "ConfusionMatrix":
+        np.testing.assert_array_equal(t.m, j.m)
+        np.testing.assert_array_equal(t.recall(), j.recall())
+        np.testing.assert_array_equal(t.precision(), j.precision())
+    if name == "IgnoredSamples":
+        assert t.ignored == j.ignored == 10
+    if name.endswith("DecisionRules"):
+        assert (t.metric.correct, t.metric.total) == (j.metric.correct, j.metric.total)
+        assert t.metric.total == 48 and t.accuracy == j.accuracy == t.best_accuracy
+    if name in SCORE_SAVERS:
+        for got, want in ((t.max, j.max), (t.min, j.min)):
+            assert len(got) == len(want) == 4
+            np.testing.assert_allclose([s for _, _, s in got], [s for _, _, s in want],
+                                       rtol=1e-5, atol=1e-6)
+            for (go, gi, _), (wo, wi, _) in zip(got, want):  # the same samples, in order
+                np.testing.assert_array_equal(go, wo)
+                np.testing.assert_array_equal(gi, wi)
+        files = {}
+        for side in ("jax", "port"):
+            root = tmp_path / side / "0"
+            files[side] = {re.sub(r"-[^-]*\.jpg$", "", f): (root / f).read_bytes()
+                           for f in sorted(os.listdir(root))}
+        assert files["port"] == files["jax"] and len(files["jax"]) == 8
+    if name.startswith("Entropy") or name == "TopEntropy":
+        np.testing.assert_allclose([t.avg, t.std, t.i], [j.avg, j.std, j.i], rtol=1e-6)
+    # the printed report, numbers and all (saved-image paths differ by side)
+    strip = lambda s: re.sub(r"in \S+", "in <dir>", s)  # noqa: E731
+    assert strip(tout) == strip(jout)
+
+
+def test_score_save_pixel_contract(tmp_path):
+    """Float images outside [0, 1] are refused at the dump, as in JAX; uint8
+    is written as it is."""
+    import nbdt_tpu.analysis as ja
+
+    import nbdt_torch.analysis as ta
+
+    logits, targets, images = _inputs()
+    for mod, side in ((ja, "jax"), (ta, "port")):
+        an = mod.TopDifference(classes=list("abcdefg"), save_k=2,
+                               path=str(tmp_path / side / "{epoch}/i-{suffix}-{i}.jpg"))
+        an.start_epoch(0)
+        an.start_test(0)
+        an.update_batch(logits, targets, (images - 0.5) * 4)
+        with pytest.raises(ValueError, match="outside"):
+            an.end_test(0)
+        an.start_test(0)
+        an.update_batch(logits, targets, (images * 255).astype(np.uint8))
+        an.end_test(0)
+    assert sorted(os.listdir(tmp_path / "port" / "0")) == sorted(os.listdir(tmp_path / "jax" / "0"))
+
+
+@pytest.mark.parametrize("kind", ["Soft", "Hard"])
+def test_device_eval_counts_equal_the_host_path(kind):
+    """``device_eval`` gives the rules' pure forward and k: its top-k hits on
+    a batch equal the host path's (and JAX's device_eval), and subclasses
+    with host work of their own get None."""
+    import jax.numpy as jnp
+
+    j, t = _pair(f"{kind}EmbeddedDecisionRules")
+    logits, targets, _ = _inputs(batch=64)
+    fwd, k = t.device_eval()
+    assert k == 1 and t.device_eval()[0] is fwd
+    hits = int((fwd(torch.as_tensor(logits)).argmax(1) == torch.as_tensor(targets)).sum())
+    jfwd, _ = j.device_eval()
+    jhits = int((np.asarray(jfwd(jnp.asarray(logits))).argmax(1) == targets).sum())
+    t.start_test(0)
+    t.update_batch(logits, targets)
+    assert hits == jhits == t.metric.correct and t.metric.total == 64
+
+    class HostOnly(type(t)):
+        def _update_batch(self, outputs, targets):
+            return super()._update_batch(outputs, targets)
+
+    assert HostOnly(tree=t.rules.tree, device="cpu").device_eval() is None
+
+
+def test_trainer_counts_the_nbdt_accuracy_on_the_device_as_on_the_host():
+    """Trainer.evaluate with a DecisionRules analyzer counts the NBDT hits
+    beside the backbone's (device_eval); the same analyzer forced onto the
+    host loop reports the same accuracy, and so does the JAX analyzer on
+    the same eval logits."""
+    import nbdt_tpu.analysis as ja
+
+    import nbdt_torch.analysis as ta
+    from nbdt_torch.data import DataLoader, SyntheticDataset
+    from nbdt_torch.models import WRN
+    from nbdt_torch.trainer import TrainConfig, Trainer, make_eval_step
+
+    jtree, ttree = tree_pair("synthetic")
+    torch.manual_seed(0)
+    model = WRN(10, 1, 7)
+    ds = SyntheticDataset(7, size=20, image_size=16, seed=1)
+    loader = DataLoader(ds, 8, transform=ds.transform_val(), drop_last=False, pad_last=True)
+
+    class HostLoop(ta.SoftEmbeddedDecisionRules):
+        def _update_batch(self, outputs, targets):
+            return super()._update_batch(outputs, targets)
+
+    accs = []
+    for cls in (ta.SoftEmbeddedDecisionRules, HostLoop):
+        an = cls(tree=ttree, device="cpu")
+        tr = Trainer(TrainConfig(batch_size=8, loss="SoftTreeSupLoss"), model, loader, loader,
+                     tree=ttree, analyzer=an, device="cpu")
+        tr.evaluate(0, checkpoint=False)
+        accs.append((an.metric.correct, an.metric.total))
+    step = make_eval_step(tr.model, torch.device("cpu"))
+    jan = ja.SoftEmbeddedDecisionRules(tree=jtree)
+    jan.start_test(0)
+    for x, y, v in loader:
+        jan.update_batch(step(torch.as_tensor(x)).numpy()[v], np.asarray(y)[v])
+    assert accs[0] == accs[1] == (jan.metric.correct, jan.metric.total)
+    assert accs[0][1] == 20
+
+
+def _args(name, tree):
+    return argparse.Namespace(analysis=name, superclass_wnids=[tree.wnids_leaves[0]],
+                              visualize_decision_node_wnid=tree.wnids_leaves[0],
+                              dataset="CIFAR10", dataset_test=None, save_k=3)
+
+
+def test_build_analyzer_constructs_every_ported_analyzer():
+    """Every ported name builds through the CLI's build_analyzer with the
+    live tree and the run's device (mirrors tests/test_analysis.py's JAX
+    check); the three not ported raise naming their ROADMAP item, and the
+    CLI exits on them before it builds anything."""
+    import nbdt_tpu.analysis as ja
+
+    import nbdt_torch.analysis as ta
+    from nbdt_torch.main import build_analyzer, main
+
+    _, tree = tree_pair("synthetic")
+
+    class DS:
+        classes = tree.classes
+
+    assert ta.names == ja.names and len(ta.names) == 14
+    assert sorted(PORTED + list(ta.NOT_PORTED)) == sorted(ta.names)
+    for name in PORTED:
+        an = build_analyzer(_args(name, tree), tree, DS(), torch.device("cpu"))
+        assert type(an).__name__ == name
+        if hasattr(an, "rules"):
+            assert an.rules.tree is tree and an.rules.device.type == "cpu"
+        if isinstance(an, ta.ScoreSave):
+            assert an.k == 3
+    for name, item in ta.NOT_PORTED.items():
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            build_analyzer(_args(name, tree), tree, DS(), torch.device("cpu"))
+        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+            main(["--synthetic", "--device", "cpu", "--analysis", name])
+
+
+def _tiny_wrn_jax(num_classes=10, dtype=None):
+    from nbdt_tpu.models.wideresnet import WRN
+
+    return WRN(depth=10, width=2, num_classes=num_classes)
+
+
+def _tiny_wrn_port(num_classes=10, dtype=torch.float32):
+    from nbdt_torch.models import WRN
+
+    return WRN(10, 2, num_classes, dtype=dtype)
+
+
+def test_cli_eval_checkpoint_analysis_matches_jax(tmp_path, monkeypatch, capsys):
+    """A tiny WRN registered under one name in both packages: both CLIs load
+    the same .pth with --checkpoint-path and print the same backbone and
+    NBDT-Soft accuracies under --eval --analysis SoftEmbeddedDecisionRules."""
+    import nbdt_tpu.main as jmain
+    import nbdt_tpu.models as jmodels
+    import nbdt_tpu.models.convert as jconvert
+    from test_torch_wrn import wrn_pair
+
+    import nbdt_torch.main as tmain
+    import nbdt_torch.models as tmodels
+
+    name = "wrn10_2_test"
+    _, _, port = wrn_pair(32)
+    path = tmp_path / "tiny.pth"
+    torch.save(port.state_dict(), path)
+    monkeypatch.setitem(tmodels.MODEL_REGISTRY, name, _tiny_wrn_port)
+    monkeypatch.setitem(jconvert._ARCH_MAPPERS, name, jconvert._wrn_key_to_path)
+    jmodels.register_model(name, _tiny_wrn_jax)
+    args = ["--synthetic", "--dataset", "CIFAR10", "--arch", name, "--batch-size", "16",
+            "--hierarchy", "induced-wrn28_10_cifar10", "--eval", "--checkpoint-path", str(path),
+            "--analysis", "SoftEmbeddedDecisionRules", "--no-progress",
+            "--checkpoint-dir", str(tmp_path / "ckpt")]
+    try:
+        jacc = jmain.main(args)
+    finally:
+        jmodels.MODEL_REGISTRY.pop(name)
+    jout = capsys.readouterr().out
+    tacc = tmain.main(args + ["--device", "cpu"])
+    tout = capsys.readouterr().out
+    assert "Loaded pretrained weights" in tout
+    line = re.compile(r"\[NBDT-Soft\] Accuracy: .*")
+    assert line.findall(tout) == line.findall(jout) and len(line.findall(tout)) == 1
+    assert tacc == jacc
+
+
+def test_cli_trains_and_evaluates_wrn_on_tinyimagenet(tmp_path, monkeypatch, capsys):
+    """The slice's CLI path at a tiny size on the CPU: synthetic 64px
+    TinyImagenet200 data, a tiny WRN on the vendored induced-wrn28_10 tree,
+    HardTreeSupLoss with the HardEmbeddedDecisionRules analyzer for one
+    epoch, then --eval of the .pth it wrote with SoftEmbeddedDecisionRules.
+    --pretrained alone exits: the port downloads nothing."""
+    import nbdt_torch.main as tmain
+    import nbdt_torch.models as tmodels
+
+    name = "wrn10_2_test"
+    monkeypatch.setitem(tmodels.MODEL_REGISTRY, name, _tiny_wrn_port)
+    base = ["--synthetic", "--dataset", "TinyImagenet200", "--arch", name,
+            "--hierarchy", "induced-wrn28_10", "--batch-size", "8", "--device", "cpu",
+            "--checkpoint-dir", str(tmp_path), "--no-progress"]
+    tmain.main(base + ["--loss", "HardTreeSupLoss", "--analysis", "HardEmbeddedDecisionRules",
+                       "--epochs", "1"])
+    out = capsys.readouterr().out
+    assert re.search(r"\[NBDT-Hard\] Accuracy: [\d.]+%, \d+/16 ", out)
+    pth = tmp_path / f"ckpt-TinyImagenet200-{name}-induced-wrn28_10-HardTreeSupLoss-last.pth"
+    assert pth.exists()
+    acc = tmain.main(base + ["--eval", "--checkpoint-path", str(pth),
+                             "--analysis", "SoftEmbeddedDecisionRules"])
+    out = capsys.readouterr().out
+    assert "Loaded pretrained weights" in out and 0 <= acc <= 100
+    assert re.search(r"\[NBDT-Soft\] Accuracy: [\d.]+%, \d+/16 ", out)
+    with pytest.raises(SystemExit, match="downloads nothing.*ROADMAP A12"):
+        tmain.main(base + ["--pretrained"])

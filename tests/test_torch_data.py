@@ -168,4 +168,86 @@ def test_cifar_reads_pickles_and_raises_when_missing(tmp_path):
             getattr(td, cls)(root=str(tmp_path / "missing"))
     assert td.get_dataset("CIFAR10") is td.CIFAR10
     with pytest.raises(KeyError):
-        td.get_dataset("Imagenet1000")
+        td.get_dataset("Cityscapes")  # segmentation data: ROADMAP A16
+
+
+def _write_png(path, rng, size):
+    from PIL import Image
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(rng.randint(0, 256, (size, size, 3), np.uint8)).save(path)
+
+
+def test_tinyimagenet_and_imagenet_read_folders(tmp_path):
+    """TinyImagenet200 (the train image folder and the annotated val split)
+    and Imagenet1000 (a lazy folder resized to 224) read a fake tree of PNGs
+    as the JAX classes do: the same arrays, labels, classes and transforms;
+    both refuse download=True, and a missing tree raises."""
+    import nbdt_tpu.data.imagenet as ji
+
+    import nbdt_torch.data as td
+
+    rng = np.random.RandomState(0)
+    tiny = tmp_path / "tiny-imagenet-200"
+    wnids = ["n02", "n01", "n03"]  # unsorted on disk: classes are sorted
+    tiny.mkdir()
+    (tiny / "wnids.txt").write_text("\n".join(wnids) + "\n")
+    for w in wnids:
+        for i in range(2):
+            _write_png(tiny / "train" / w / "images" / f"{w}_{i}.png", rng, 64)
+    ann = []
+    for i, w in enumerate(["n03", "n01", "n02", "n03"]):
+        _write_png(tiny / "val" / "images" / f"val_{i}.png", rng, 64)
+        ann.append(f"val_{i}.png\t{w}\t0\t0\t63\t63")
+    (tiny / "val" / "val_annotations.txt").write_text("\n".join(ann) + "\n")
+    for c in ("n04", "n05"):
+        for i in range(2):
+            _write_png(tmp_path / "imagenet-1000" / "val" / c / f"{c}_{i}.png", rng, 48)
+
+    for train in (True, False):
+        j = ji.TinyImagenet200(root=str(tmp_path), train=train)
+        t = td.TinyImagenet200(root=str(tmp_path), train=train)
+        assert t.images.shape[1:] == (64, 64, 3) and t.images.dtype == np.uint8
+        np.testing.assert_array_equal(t.images, j.images)
+        np.testing.assert_array_equal(t.labels, j.labels)
+        assert t.classes == j.classes == sorted(wnids)
+    x = t.images
+    np.testing.assert_allclose(t.transform_val()(x), j.transform_val()(x), atol=1e-6)
+    np.testing.assert_allclose(t.transform_train(seed=3)(x), j.transform_train(seed=3)(x),
+                               atol=1e-6)
+    np.testing.assert_array_equal(t.mean, j.mean)
+
+    j, t = (m.Imagenet1000(root=str(tmp_path), train=False) for m in (ji, td))
+    assert t.classes == j.classes and len(t) == len(j) == 4
+    for i in range(4):
+        np.testing.assert_array_equal(t[i][0], j[i][0])
+        assert t[i][0].shape == (224, 224, 3) and t[i][1] == j[i][1]
+    xs = np.stack([t[i][0] for i in range(4)])
+    np.testing.assert_allclose(t.transform_train(seed=1)(xs), j.transform_train(seed=1)(xs),
+                               atol=1e-6)
+    loader = td.DataLoader(t, 3, transform=t.transform_val(), drop_last=False, pad_last=True)
+    assert [x.shape for x, _, _ in loader] == [(3, 224, 224, 3)] * 2
+
+    assert td.get_dataset("TinyImagenet200") is td.TinyImagenet200
+    assert td.get_dataset("Imagenet1000") is td.Imagenet1000
+    for cls in (td.TinyImagenet200, td.Imagenet1000):
+        with pytest.raises(ValueError, match="downloads no datasets"):
+            cls(root=str(tmp_path), download=True)
+        with pytest.raises(FileNotFoundError):
+            cls(root=str(tmp_path / "missing"))
+
+
+def test_synthetic_cli_datasets_take_the_dataset_resolution():
+    """--synthetic builds 64px data for TinyImagenet200, 224px for
+    Imagenet1000 and 32px for CIFAR, with the dataset's class count."""
+    import argparse
+
+    from nbdt_torch.main import build_datasets
+
+    for dataset, size, n in (("TinyImagenet200", 64, 200), ("CIFAR100", 32, 100),
+                             ("Imagenet1000", 224, 1000)):
+        args = argparse.Namespace(synthetic=True, dataset=dataset, dataset_test=None,
+                                  batch_size=2, disable_test_eval=False)
+        train, test = build_datasets(args)
+        assert train.images.shape[1:] == (size, size, 3) == test.images.shape[1:]
+        assert len(train.classes) == len(test.classes) == n

@@ -157,10 +157,12 @@ def test_port_imports_nothing_of_jax():
         "import nbdt_torch.data, nbdt_torch.data.cifar, nbdt_torch.data.loader\n"
         "import nbdt_torch.hierarchy.build, nbdt_torch.hierarchy.cluster\n"
         "import nbdt_torch.hierarchy.generate\n"
+        "import nbdt_torch.models.wideresnet, nbdt_torch.data.imagenet, nbdt_torch.analysis\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
+        "assert 'PIL' not in sys.modules, 'PIL imported at module level'\n"
         "print('clean')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -225,6 +227,20 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--synthetic", "--arch", "ResNet10", "--epochs", "1", "--batch-size", "4"])
 
+    # the WRN slice: the analyzers' rules and the CLI's --analysis eval
+    from nbdt_torch import analysis
+
+    for cls in (analysis.DecisionRules, analysis.SoftEmbeddedDecisionRules,
+                analysis.HardEmbeddedDecisionRules, analysis.NBDTEntropyMaxMin):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(tree=tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        analysis.VisualizeDecisionNode(tree=tree, visualize_decision_node_wnid=tree.wnids_leaves[0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--synthetic", "--dataset", "CIFAR100", "--arch", "ResNet10", "--eval",
+              "--batch-size", "4", "--hierarchy", "induced-wrn28_10_cifar100",
+              "--analysis", "SoftEmbeddedDecisionRules"])
+
 
 @pytest.mark.gpu
 def test_soft_head_kernel_matches_plain_on_gpu():
@@ -260,7 +276,12 @@ def test_soft_head_kernel_matches_plain_on_gpu():
              # takes shared memory): ResNet50's 2048, EfficientNet-B7's 2560
              "CIFAR100 D=2048": (Tree("CIFAR100").arrays, 2048),
              "Imagenet1000 D=2048": (Tree("Imagenet1000").arrays, 2048),
-             "TinyImagenet200 D=2560": (Tree("TinyImagenet200").arrays, 2560)}
+             "TinyImagenet200 D=2560": (Tree("TinyImagenet200").arrays, 2560),
+             # WRN-28-10's heads: CIFAR100 and TinyImagenet200 at D=640
+             "CIFAR100 D=640": (Tree("CIFAR100", hierarchy="induced-wrn28_10_cifar100").arrays,
+                                640),
+             "TinyImagenet200 D=640": (Tree("TinyImagenet200", hierarchy="induced-wrn28_10")
+                                       .arrays, 640)}
     instances = set()
     for name, (arrays, D) in trees.items():
         W = rng.randn(D, arrays.num_classes).astype(np.float32) / np.sqrt(D)

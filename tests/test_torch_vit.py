@@ -276,8 +276,9 @@ def test_get_model_registry():
     assert vit.dtype == torch.bfloat16 and vit.ln_impl == "pallas"
     assert vit.encoder.pos_embedding.shape == (1, 5, 768)
     assert isinstance(tm.get_model("ResNet18", 10), tm.ResNet)
-    assert sorted(tm.MODEL_REGISTRY) == ["ResNet10", "ResNet18", "vit_b16", "vit_s16"]
+    assert sorted(tm.MODEL_REGISTRY) == ["ResNet10", "ResNet18", "WRN", "vit_b16", "vit_s16",
+                                         "wrn28_10", "wrn28_10_cifar10", "wrn28_10_cifar100"]
     with pytest.raises(KeyError, match="unknown arch"):
-        tm.get_model("wrn28_10", 10)
+        tm.get_model("ResNet50", 10)  # the Bottleneck family: ROADMAP A3
     with pytest.raises(ValueError, match="ln_impl"):
         tm.vit_s16(10, ln_impl="fast")
