@@ -14,7 +14,11 @@ trainer's cached and host-fed modes, the three tree losses, a SoftTreeLoss
 refresh, the CLI, save and resume, a card-vs-CPU step), and WideResNet-28-10
 (serving CIFAR100 through the fused head at batch 1024; tree-supervised
 training at batch 512 evaluated with the NBDT analyzers; the CLI on 64px
-TinyImagenet200, then ``--eval --checkpoint-path --analysis``). Builds every
+TinyImagenet200, then ``--eval --checkpoint-path --analysis``), and the
+zero-shot flow with ViT-B/16 in f32 (the CLI trains on CIFAR10 at 32px
+without two classes on the WordNet tree, then scores CIFAR100's classes with
+the Superclass analyzers through a mini-corpus; the Trainer at 224px on 1000
+classes with 100 unseen). Builds every
 hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
 PyTorch version, checks each path's launch counts and outputs, and times the
 kernels and requests with CUDA events. Exits nonzero, printing no result,
@@ -26,7 +30,7 @@ Phases: device, build, the conv probe's inputs, kernel vs plain (soft_head,
 layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
 its f32 gate, its serving fn, the conv probe path (one request, then the
 probe's parity and timing phases), the training path, the WRN-28-10 serving
-and training path, times.
+and training path, the zero-shot path, times.
 """
 
 from __future__ import annotations
@@ -119,6 +123,29 @@ WRN_TRAIN_SIZE = 4096
 WRN_TEST_SIZE = 1024
 WRN_XSTEP_BATCH = 8
 WRN_CLI_BATCH = 128
+# Zero-shot path (ViT-B/16, f32, TF32 off, ln_impl="f32"). Z1/Z2: the CLI on
+# CIFAR10 at 32px (--synthetic builds 4 batches of 256 to train and 2 to
+# test), cat and dog (3, 5) unseen, 2 epochs on the vendored CIFAR10 WordNet
+# tree, then a zero-shot eval on CIFAR100's classes in the superclass space
+# of 'animal' and 'vehicle'. Z3: the Trainer at the published 224px on 1000
+# classes, 600 synthetic images with labels 900-999 unseen (531 kept: 8
+# cached steps of 64 an epoch), 2 epochs; the card-vs-CPU step at batch 2.
+ZS_BATCH = 256
+# Z1's learning rate. The 2-epoch schedule runs it /10, then /100. At the
+# CLI's default 0.1, the mean loss of ViT-B/16 on --synthetic's noise images
+# rose over the 2 epochs in a CPU run of this exact command (5.4929 ->
+# 6.4118); at 0.01 it fell (4.7505 -> 4.6842).
+ZS_LR = "0.01"
+ZS_EXCLUDE = ("3", "5")
+ZS_SUPERCLASSES = ("n00015388", "n04524313")  # 'animal', 'vehicle'
+# Classes that map to those superclasses through the merged mini-corpus
+# (tests/test_torch_hierarchy.py and tests/test_torch_analysis.py pin them
+# against the JAX package): CIFAR10's prediction space, CIFAR100's test one.
+ZS_MAPPED = {"CIFAR10": 8, "CIFAR100": 44}
+Z3_BATCH = 64
+Z3_SIZE = 600
+Z3_STEPS = 8
+Z3_XSTEP_BATCH = 2
 # The bf16 serving fn against the f32 plain path: both round the same
 # random-weight WRN differently (bf16 convs over 28 layers), so this is a
 # floor on their argmax agreement, not an exactness gate.
@@ -835,7 +862,7 @@ def card_vs_cpu_step(tag: str, make_model, head: str, init, cfg: TrainConfig, tr
                                "SoftTreeSupLoss", to_device_tree(tree.arrays, dev),
                                normalize=(trainset.mean, trainset.std))
         m = step(x.to(dev), y.to(dev), 1.0, 1.0, 0)
-        out[dev] = (float(m["loss"]), getattr(model, head).weight.detach().cpu())
+        out[dev] = (float(m["loss"]), model.get_submodule(head).weight.detach().cpu())
     rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     wdiff = float((out["cuda"][1] - out["cpu"][1]).abs().max())
     check(rel <= XSTEP_RTOL, f"{tag} card vs CPU step: loss {out['cuda'][0]} vs "
@@ -1163,6 +1190,191 @@ def run_wrn_training(tree: Tree, workdir: Path) -> dict:
             "card_vs_cpu_step": xstep, "tree_products_highest": n_products}
 
 
+@contextlib.contextmanager
+def timed_epochs(records: list):
+    """Records, for every ``Trainer.train_epoch`` run inside (the CLI's too),
+    its steps, mean loss and device ms a step by CUDA events around it."""
+    real = Trainer.train_epoch
+
+    def timed(self, epoch):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        stats = real(self, epoch)
+        end.record()
+        torch.cuda.synchronize()
+        losses = stats["step_losses"]
+        check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
+              f"epoch {epoch}: step losses {losses}")
+        ms = start.elapsed_time(end) / len(losses)
+        records.append({"steps": len(losses), "mean_loss": float(np.mean(losses)),
+                        "step_losses": [float(v) for v in losses],
+                        "device_ms_per_step": ms,
+                        "images_per_s": self.config.batch_size / ms * 1e3})
+        return stats
+
+    Trainer.train_epoch = timed
+    try:
+        yield records
+    finally:
+        Trainer.train_epoch = real
+
+
+def run_zero_shot_path(workdir: Path) -> dict:
+    """The zero-shot flow with ViT-B/16 (dim 768, depth 12, 12 heads) in f32
+    with TF32 off and ``ln_impl="f32"``, as the JAX CLI builds it:
+    Z1. ``python -m nbdt_torch.main`` trains on CIFAR10 at 32px without cat
+        and dog (SoftTreeSupLoss on the vendored WordNet tree, the
+        mini-corpus merged from the vendored CIFAR10 and CIFAR100 WordNet
+        graphs), 2 epochs at batch 256;
+    Z2. the CLI's zero-shot eval of its .pth on CIFAR100's classes with
+        Superclass and SuperclassNBDT over 'animal' and 'vehicle', each
+        count held to the analyzer's forward on logits computed here, and
+        the class mismatch refused without --disable-test-eval;
+    Z3. the Trainer at the published 224px on 1000 classes with 900-999
+        unseen, cached, 8 steps an epoch, and a card-vs-CPU step;
+    Z4. no kernel launch over Z1-Z3."""
+    from nbdt_torch.analysis import Superclass, SuperclassNBDT
+    from nbdt_torch.data import ArrayDataset, ExcludeLabelsDataset, SyntheticDataset
+    from nbdt_torch.hierarchy.wnid import clear_mini_corpus, mini_corpus_from_graph_json
+    from nbdt_torch.main import build_datasets, get_parser
+    from nbdt_torch.model import load_checkpoint
+    from nbdt_torch.models import get_model
+    from nbdt_torch.trainer import make_eval_step
+    from nbdt_torch.utils import hierarchy_to_path_graph
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    table = {}
+    for dataset in ("CIFAR10", "CIFAR100"):
+        table.update(mini_corpus_from_graph_json(hierarchy_to_path_graph(dataset, "wordnet")))
+    corpus = workdir / "mini-corpus.json"
+    corpus.write_text(json.dumps(table))
+    torch.cuda.synchronize()
+    reset_launches()
+
+    # Z1. Train through the CLI with cat and dog unseen
+    base = ["--dataset", "CIFAR10", "--arch", "vit_b16", "--synthetic", "--hierarchy", "wordnet",
+            "--mini-corpus", str(corpus), "--batch-size", str(ZS_BATCH), "--no-progress",
+            "--checkpoint-dir", str(workdir)]
+    t0 = time.perf_counter()
+    with timed_epochs([]) as epochs:
+        run_cli(base + ["--exclude-labels", *ZS_EXCLUDE, "--loss", "SoftTreeSupLoss",
+                        "--epochs", str(TRAIN_EPOCHS), "--lr", ZS_LR])
+    z1_s = time.perf_counter() - t0
+    check(len(epochs) == TRAIN_EPOCHS, f"Z1: {len(epochs)} epochs ran")
+    check(epochs[1]["mean_loss"] < epochs[0]["mean_loss"],
+          f"Z1: epoch-1 mean loss {epochs[1]['mean_loss']} is not below epoch 0's "
+          f"{epochs[0]['mean_loss']}")
+    pth = workdir / (f"ckpt-CIFAR10-vit_b16-lr{ZS_LR}-wordnet-excl{','.join(ZS_EXCLUDE)}"
+                     "-SoftTreeSupLoss-last.pth")
+    check(pth.exists(), f"Z1: no checkpoint at {pth} (the name carries the excluded labels)")
+    print(f"[zero-shot] Z1 CLI vit_b16 CIFAR10 32px, labels 3 and 5 excluded, SoftTreeSupLoss "
+          f"on the WordNet tree, lr {ZS_LR}: " + "; ".join(
+              f"epoch {i}: {e['steps']} steps, losses {[round(v, 4) for v in e['step_losses']]}, "
+              f"mean {e['mean_loss']:.4f}, {e['device_ms_per_step']:.3f} device ms/step, "
+              f"{e['images_per_s']:.1f} images/s" for i, e in enumerate(epochs))
+          + f"; {pth.name}; {z1_s:.1f} s", flush=True)
+
+    # Z2. Zero-shot eval on CIFAR100's classes, from Z1's .pth
+    argv = base + ["--eval", "--checkpoint-path", str(pth), "--dataset-test", "CIFAR100",
+                   "--superclass-wnids", *ZS_SUPERCLASSES]
+    trainset, testset = build_datasets(get_parser().parse_args(argv + ["--disable-test-eval"]))
+    model = get_model("vit_b16", 10, image_size=32)
+    model.load_state_dict(load_checkpoint(pth), strict=True)
+    step = make_eval_step(model.to("cuda", memory_format=torch.channels_last), "cuda")
+    logits, labels = [], []
+    for x, y, v in DataLoader(testset, ZS_BATCH, transform=testset.transform_val(),
+                              drop_last=False, pad_last=True):
+        logits.append(step(torch.as_tensor(x, device="cuda")).cpu().numpy()[v])
+        labels.append(np.asarray(y)[v])
+    logits, labels = np.concatenate(logits), np.concatenate(labels)
+    tree = Tree("CIFAR10", hierarchy="wordnet", classes=list(trainset.classes))
+    z2 = {}
+    for cls, name in ((Superclass, "Superclass"), (SuperclassNBDT, "Superclass-NBDT")):
+        t0 = time.perf_counter()
+        acc, text = run_cli(argv + ["--disable-test-eval", "--analysis", cls.__name__])
+        _, correct, total = nbdt_line(text, name)
+        an = cls(superclass_wnids=list(ZS_SUPERCLASSES), tree=tree, dataset_test="CIFAR100")
+        mapped = {"CIFAR10": int((an.mapping_pred >= 0).sum()),
+                  "CIFAR100": int((an.mapping_target >= 0).sum())}
+        check(mapped == ZS_MAPPED, f"Z2 {name}: mapped classes {mapped}, pinned {ZS_MAPPED}")
+        want_total = int((an.mapping_target[labels] >= 0).sum())
+        pred, tgt = an.forward(logits, labels)
+        want_correct = int((pred == tgt).sum())
+        check((correct, total) == (want_correct, want_total) and total > 0,
+              f"Z2 {name}: CLI {correct}/{total}, its forward on this run's logits "
+              f"{want_correct}/{want_total}")
+        check(acc == round(correct / total * 100, 2),
+              f"Z2 {name}: the CLI's score {acc} is not the analyzer's accuracy")
+        z2[cls.__name__] = {"accuracy": acc, "correct": correct, "total": total,
+                            "seconds": time.perf_counter() - t0}
+        print(f"[zero-shot] Z2 --eval --dataset-test CIFAR100 --analysis {cls.__name__}: "
+              f"{acc}% ({correct}/{total}: the {total} CIFAR100 test samples whose class maps "
+              f"to 'animal' or 'vehicle', {mapped['CIFAR100']} of 100 classes; the prediction "
+              f"space maps {mapped['CIFAR10']} of 10; equal to the analyzer's forward on this "
+              f"run's logits)", flush=True)
+    try:
+        run_cli(argv + ["--analysis", "Superclass"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    check(code not in (0, None), "Z2: a CIFAR100 test set without --disable-test-eval ran")
+    print(f"[zero-shot] Z2 without --disable-test-eval: exits nonzero ({str(code)[:60]}...)",
+          flush=True)
+    clear_mini_corpus()
+    del model, step
+
+    # Z3. ViT-B/16 training at 224px, labels 900-999 unseen, cached
+    base_set = SyntheticDataset(1000, size=Z3_SIZE, image_size=224, seed=50)
+    z3_set = ExcludeLabelsDataset(base_set, range(900, 1000))
+    check(len(z3_set) // Z3_BATCH == Z3_STEPS, f"Z3: {len(z3_set)} kept images")
+    cfg = TrainConfig(dataset="Imagenet1000", arch="vit_b16", batch_size=Z3_BATCH,
+                      epochs=TRAIN_EPOCHS, loss="SoftTreeSupLoss", cache_dataset=True,
+                      checkpoint_dir=str(workdir / "z3"))
+    loader = DataLoader(z3_set, Z3_BATCH, shuffle=True, transform=z3_set.transform_train())
+    tree1000 = Tree("Imagenet1000")
+    torch.manual_seed(60)
+    init = get_model("vit_b16", 1000, image_size=224)
+    tr = Trainer(cfg, init, loader, loader, tree=tree1000)
+    with timed_epochs([]) as z3_epochs:
+        for epoch in range(TRAIN_EPOCHS):
+            tr.train_epoch(epoch)
+    check(all(e["steps"] == Z3_STEPS for e in z3_epochs), f"Z3: steps {z3_epochs}")
+    print("[zero-shot] Z3 ViT-B/16 224px 1000 classes (900-999 unseen), SoftTreeSupLoss on the "
+          "Imagenet1000 induced tree, cached, batch 64: " + "; ".join(
+              f"epoch {i}: {e['steps']} steps, mean loss {e['mean_loss']:.4f}, "
+              f"{e['device_ms_per_step']:.3f} device ms/step, {e['images_per_s']:.1f} images/s"
+              for i, e in enumerate(z3_epochs)), flush=True)
+    keep = z3_set.new_to_old[:Z3_XSTEP_BATCH]
+    kept = ArrayDataset(base_set.images[keep], base_set.labels[keep], base_set.classes)
+    xb = torch.as_tensor(base_set.images[z3_set.new_to_old[:Z3_BATCH]], device="cuda")
+    yb = torch.as_tensor(base_set.labels[z3_set.new_to_old[:Z3_BATCH]], device="cuda")
+    host_step = make_train_step(tr.model, tr.optimizer, tr.lr_at, "SoftTreeSupLoss", tr.jt,
+                                normalize=(base_set.mean, base_set.std))
+    print_profile("ViT-B/16 train step, 224px, batch 64, f32, SoftTreeSupLoss",
+                  *profile_ms(lambda: host_step(xb, yb, 1.0, 1.0, 0), n=3))
+    del tr, host_step, xb, yb
+    xstep = card_vs_cpu_step("[zero-shot] Z3", lambda: get_model("vit_b16", 1000, image_size=224),
+                             "heads.head", init, cfg, kept, tree1000, Z3_XSTEP_BATCH,
+                             lr_schedule(cfg, Z3_STEPS))
+
+    # Z4. No kernel ran
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"zero-shot path launched kernels: {launches}")
+    print(f"[zero-shot] Z4 kernel launches over Z1-Z3: {json.dumps(launches)}", flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"model": "vit_b16", "launches": launches,
+            "z1_cli_train": {"dataset": "CIFAR10", "image": 32, "batch": ZS_BATCH,
+                             "excluded": [int(v) for v in ZS_EXCLUDE], "epochs": epochs,
+                             "seconds": z1_s},
+            "z2_zero_shot_eval": {"dataset_test": "CIFAR100", "mapped": ZS_MAPPED, **z2},
+            "z3_train_224": {"batch": Z3_BATCH, "classes": 1000, "unseen": 100,
+                             "epochs": z3_epochs, "card_vs_cpu_step": xstep}}
+
+
 def time_layernorm() -> dict:
     """B2 at the ViT-B shape (50,432 x 768), f32 and bf16: the kernel, its
     plain version and F.layer_norm on the same tensors. Two rotating inputs
@@ -1312,6 +1524,10 @@ def main() -> int:
                                  Path(__file__).resolve().parent / "build" / "chip_smoke_wrn")
     wrn_seconds = time.perf_counter() - t0
     print(f"[wrn] the WRN-28-10 path took {wrn_seconds:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    zero_shot = run_zero_shot_path(Path(__file__).resolve().parent / "build" / "chip_smoke_zs")
+    zero_shot["seconds"] = time.perf_counter() - t0
+    print(f"[zero-shot] the zero-shot path took {zero_shot['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -1349,6 +1565,7 @@ def main() -> int:
                                  "requests": REQUESTS, "requests_timed": WRN_TIMED,
                                  **with_rates(wrn, WRN_BATCH)},
                      "train": wrn_train, "seconds": wrn_seconds},
+        "zero_shot": zero_shot,
         "card": smi}}), flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1402,6 +1619,7 @@ def main() -> int:
         **head_fields("wrn_c200", head_w200),
         "launches_on_training_path": train["launches"]["soft_head"],
         "launches_on_wrn_training_path": wrn_train["launches"]["soft_head"],
+        "launches_on_zero_shot_path": zero_shot["launches"]["soft_head"],
         "instance_by_shape": {"resnet18": head_resnet[f32]["instance"],
                               "vit_b16": head_vit[f32]["instance"],
                               "cifar100_d2048": head_wide[f32]["instance"],
@@ -1422,6 +1640,7 @@ def main() -> int:
         "replaces": "nbdt_tpu/ops/layernorm.py:24",
         "launches": vit["launches"]["layernorm"],
         "launches_on_training_path": train["launches"]["layernorm"],
+        "launches_on_zero_shot_path": zero_shot["launches"]["layernorm"],
         "max_abs_err": ln_err[f32],
         "ms": ln_t[f32]["ms"],
         "plain_ms": ln_t[f32]["plain_ms"],
@@ -1441,6 +1660,7 @@ def main() -> int:
         "replaces_also": ["tools/probe_pallas_conv.py:201", "tools/probe_pallas_conv.py:270"],
         "launches": conv_probe["launches"]["conv3x3"],
         "launches_on_training_path": train["launches"]["conv3x3"],
+        "launches_on_zero_shot_path": zero_shot["launches"]["conv3x3"],
         "max_abs_err": conv_err,
         "ms": conv_t["kernel"]["ms"],
         "plain_ms": conv_t["plain"]["ms"],

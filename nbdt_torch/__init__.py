@@ -7,13 +7,17 @@ reads the hierarchy JSONs and wnid lists vendored under ``nbdt_tpu/`` by
 file path. Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
 
-  hierarchy/  host-side graph, wnid naming, classifier probe, induced
-              hierarchies (ward clustering, generate_hierarchy)
+  hierarchy/  host-side graph, wnids and mini-corpora, classifier probe,
+              induced, WordNet and random hierarchies (generate_hierarchy),
+              the HTML visualiser
   tree        host Tree + compilation to static arrays
   rules       soft and hard decision rules as plain PyTorch (exact f32)
   losses      the tree-supervision losses
-  data/       CIFAR and synthetic datasets, batch transforms, loaders
-  trainer     TrainConfig, Trainer; main is the training CLI
+  analysis    the --analysis plugins, the zero-shot Superclass pair too
+  data/       CIFAR, ImageNet-folder and synthetic datasets, label-subset
+              wrappers, batch transforms, loaders
+  trainer     TrainConfig, Trainer; main is the training CLI; bin/ holds
+              the hierarchy and wnid CLIs
   models      CIFAR ResNets and ViT-B/16, ViT-S/16 (NCHW), BN folding,
               flax -> torch converter, get_model
   ops         hand-written CUDA kernels (csrc/: soft head, LayerNorm) beside

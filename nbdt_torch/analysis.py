@@ -7,12 +7,9 @@ Counterpart of ``nbdt_tpu/analysis.py``. Every analyzer derives from
 JAX package's numpy. The rules-driven analyzers hold the port's decision
 rules on ``device`` (CUDA unless the caller passes ``device="cpu"``), and
 ``DecisionRules.device_eval`` gives the trainer the rules' pure forward so
-that the NBDT accuracy is counted on the device.
-
-Not ported yet, so constructing one raises naming its ROADMAP item:
-``Superclass`` and ``SuperclassNBDT`` (A10: the label-subset wrappers and
-the WordNet hypernym closure of a zero-shot run) and
-``VisualizeHierarchyInference`` (A9: ``hierarchy/vis.py``).
+that the NBDT accuracy is counted on the device. ``Superclass`` and
+``SuperclassNBDT`` score a zero-shot run in a superclass label space on the
+host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +28,7 @@ from .hierarchy.wnid import synset_to_wnid, wnid_to_synset
 from .rules import HardEmbeddedDecisionRules as HardRules
 from .rules import SoftEmbeddedDecisionRules as SoftRules
 from .rules import hard_forward, soft_forward
+from .utils import Colors
 
 __all__ = names = (
     "Noop",
@@ -49,10 +47,8 @@ __all__ = names = (
     "VisualizeHierarchyInference",
 )
 
-# Analyzers whose modules the port does not have yet, and the ROADMAP item
-# that brings each.
-NOT_PORTED = {"Superclass": "A10", "SuperclassNBDT": "A10",
-              "VisualizeHierarchyInference": "A9"}
+# Analyzers whose modules the port does not have yet: none is left.
+NOT_PORTED: dict = {}
 
 
 def _host(x) -> np.ndarray:
@@ -393,29 +389,6 @@ class TopDifference(ScoreSave):
         return list(sorted_probs[:, -1] - sorted_probs[:, -2])
 
 
-def _all_hypernyms(synset):
-    hypernyms, frontier = [], [synset]
-    while frontier:
-        current = frontier.pop(0)
-        hypernyms.append(current)
-        frontier.extend(current.hypernyms())
-    return hypernyms
-
-
-def build_superclass_mapping(dataset_wnids, superclass_wnids):
-    """(leaf index -> index of the first superclass among its WordNet
-    hypernyms, or -1; superclass index -> leaf indices), through the
-    installed WordNet corpus or mini corpus."""
-    new_to_old_classes = defaultdict(list)
-    mapping = []
-    for old_index, dataset_wnid in enumerate(dataset_wnids):
-        hypernym_wnids = [synset_to_wnid(s) for s in _all_hypernyms(wnid_to_synset(dataset_wnid))]
-        value = next((i for i, w in enumerate(superclass_wnids) if w in hypernym_wnids), -1)
-        mapping.append(value)
-        new_to_old_classes[value].append(old_index)
-    return np.array(mapping), new_to_old_classes
-
-
 class VisualizeDecisionNode(ScoreSave):
     """Save the samples most similar to a chosen decision node: the score is
     the node's raw child logit toward the chosen wnid (a per-sample softmax
@@ -432,7 +405,7 @@ class VisualizeDecisionNode(ScoreSave):
         self.wnid = visualize_decision_node_wnid
         self.mapping_target = None
         if superclass_wnids:
-            self.mapping_target, _ = build_superclass_mapping(
+            self.mapping_target, _ = Superclass.build_mapping(
                 self.rules.tree.wnids_leaves, list(superclass_wnids))
 
     def score(self, outputs, targets, images):
@@ -448,22 +421,161 @@ class VisualizeDecisionNode(ScoreSave):
         return list(similarity)
 
 
-class _NotPorted:
-    """An analyzer the port does not have yet: constructing it raises."""
+class Superclass(DecisionRules):
+    """Zero-shot superclass eval: map the prediction classes and the test
+    classes onto ``superclass_wnids`` through their WordNet hypernym
+    closures, mask the logits of unmapped classes, and compare in
+    superclass space. ``mapping`` (leaf wnid -> superclass index) replaces
+    the WordNet closure for both class spaces; ``mapping_test`` replaces it
+    for the test label space only, where an unseen class maps to a
+    superclass without being in the prediction space. ``dataset_test`` or
+    ``tree_test`` give the test label space its own tree. Scored on the
+    host: ``device_eval`` is None."""
 
-    def __init__(self, *args, **kwargs):
-        name = type(self).__name__
-        raise NotImplementedError(
-            f"analyzer {name} is not ported to nbdt_torch yet (ROADMAP {NOT_PORTED[name]})")
+    name = "Superclass"
+    Rules = SoftRules
+
+    def __init__(self, *args, superclass_wnids, dataset_test=None, Rules=None, tree=None,
+                 tree_test=None, metric=None, mapping=None, mapping_test=None, device="cuda",
+                 **kwargs):
+        super().__init__(*args, tree=tree, Rules=Rules or self.Rules, device=device, **kwargs)
+        if tree_test is not None or dataset_test is not None:
+            self.rules_test = (Rules or self.Rules)(dataset=dataset_test, tree=tree_test,
+                                                    device=device)
+        else:
+            self.rules_test = self.rules
+        self.superclass_wnids = list(superclass_wnids)
+        self.total = self.correct = 0
+
+        def resolve(wnids_leaves, mapping):
+            if mapping is None:
+                return self.build_mapping(wnids_leaves, self.superclass_wnids)
+            new_to_old = defaultdict(list)
+            arr = []
+            for old_index, w in enumerate(wnids_leaves):
+                value = int(mapping.get(w, -1))
+                arr.append(value)
+                new_to_old[value].append(old_index)
+            return np.array(arr), new_to_old
+
+        self.mapping_target, self.new_to_old_classes_target = resolve(
+            self.rules_test.tree.wnids_leaves, mapping if mapping_test is None else mapping_test)
+        self.mapping_pred, self.new_to_old_classes_pred = resolve(
+            self.rules.tree.wnids_leaves, mapping)
+        mapped = [self.classes[i] for i in np.flatnonzero(self.mapping_pred >= 0)
+                  if i < len(self.classes)]
+        if not mapped:
+            Colors.red("WARNING: 0 classes mapped to your superclasses — every sample will be "
+                       "skipped and accuracy will read 0%. Offline (no WordNet corpus), pass "
+                       "mapping= or --mini-corpus, or use leaf wnids as superclass wnids.")
+        else:
+            Colors.cyan(f"==> Mapped {len(mapped)} classes to your superclasses: {mapped}")
+
+    @staticmethod
+    def build_mapping(dataset_wnids, superclass_wnids):
+        """(leaf index -> index of the first superclass among its WordNet
+        hypernyms, or -1; superclass index -> leaf indices), through the
+        installed WordNet corpus or mini-corpus."""
+        new_to_old_classes = defaultdict(list)
+        mapping = []
+        for old_index, dataset_wnid in enumerate(dataset_wnids):
+            hypernym_wnids = [synset_to_wnid(s)
+                              for s in Superclass.all_hypernyms(wnid_to_synset(dataset_wnid))]
+            value = next((i for i, w in enumerate(superclass_wnids) if w in hypernym_wnids), -1)
+            mapping.append(value)
+            new_to_old_classes[value].append(old_index)
+        return np.array(mapping), new_to_old_classes
+
+    @staticmethod
+    def all_hypernyms(synset):
+        """The synset and its hypernyms, breadth first."""
+        hypernyms, frontier = [], [synset]
+        while frontier:
+            current = frontier.pop(0)
+            hypernyms.append(current)
+            frontier.extend(current.hypernyms())
+        return hypernyms
+
+    def forward(self, outputs, targets):
+        """(predicted superclass, target superclass) of the samples whose
+        target maps to a superclass; the argmax runs over the mapped
+        classes' logits only."""
+        outputs = np.array(_host(outputs), copy=True)
+        targets = self.mapping_target[_host(targets)]
+        outputs = outputs[targets >= 0]
+        targets = targets[targets >= 0]
+        outputs[:, self.mapping_pred < 0] = -100
+        if outputs.shape[0] == 0:
+            return np.array([]), np.array([])
+        return self.mapping_pred[outputs.argmax(1)], targets
+
+    def start_test(self, epoch):
+        self.total = self.correct = 0
+
+    @property
+    def accuracy(self) -> float:
+        return round(self.correct / (float(self.total) or 1) * 100.0, 2)
+
+    def _update_batch(self, outputs, targets):
+        predicted, targets = self.forward(outputs, targets)
+        self.total += len(predicted)
+        self.correct += int((predicted == targets).sum())
+        return f"{self.name}: {self.accuracy}%"
+
+    def end_test(self, epoch):
+        print(f"[{self.name}] Accuracy: {self.accuracy}%, {self.correct}/{self.total}")
 
 
-class Superclass(_NotPorted):
-    pass
+class SuperclassNBDT(Superclass):
+    """Scores each superclass by the mean of its member classes' logits."""
+
+    name = "Superclass-NBDT"
+    Rules = SoftRules
+
+    def forward(self, outputs, targets):
+        outputs = _host(outputs)
+        num_super = max((k for k in self.new_to_old_classes_pred if k >= 0), default=-1) + 1
+        if num_super == 0:  # nothing mapped (the constructor warned): 0 predictions
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        cols = []
+        for k in range(num_super):
+            old = self.new_to_old_classes_pred.get(k, [])
+            cols.append(outputs[:, old].mean(axis=1) if old else np.full(len(outputs), -1e30))
+        predicted = np.stack(cols, axis=1).argmax(1)
+        targets = self.mapping_target[_host(targets)]
+        return predicted[targets >= 0], targets[targets >= 0]
 
 
-class SuperclassNBDT(_NotPorted):
-    pass
+class VisualizeHierarchyInference(Noop):
+    """Writes one hierarchy HTML per sample (up to ``limit`` a test) with
+    the soft rules' per-edge probabilities along its decision path."""
 
+    def __init__(self, classes=(), tree=None, Rules=SoftRules, dataset=None, path_graph=None,
+                 path_wnids=None, out_dir="out/vis-inference", limit: int = 8, device="cuda",
+                 **kwargs):
+        self.rules = Rules(tree=tree, dataset=dataset, path_graph=path_graph,
+                           path_wnids=path_wnids, device=device)
+        super().__init__(self.rules.tree.classes)
+        self.out_dir = out_dir
+        self.limit = limit
+        self._written = 0
 
-class VisualizeHierarchyInference(_NotPorted):
-    pass
+    def start_test(self, epoch):
+        self._written = 0
+
+    def update_batch(self, outputs, targets, images=None):
+        if self._written >= self.limit:
+            return
+        from .hierarchy.vis import generate_hierarchy_vis_from
+
+        _, decisions = self.rules.forward_with_decisions(_host(outputs))
+        os.makedirs(self.out_dir, exist_ok=True)
+        for decision in decisions:
+            if self._written >= self.limit:
+                break
+            path_html = os.path.join(self.out_dir, f"sample-{self.epoch}-{self._written}.html")
+            generate_hierarchy_vis_from(
+                self.rules.tree.G, dataset=self.rules.tree.dataset, path_html=path_html,
+                color_path_to=decision[-1]["node"].wnid,
+                edge_probs={step["node"].wnid: step["prob"] for step in decision})
+            self._written += 1

@@ -1,7 +1,7 @@
 """Input pipelines: datasets, batch transforms and the loader.
 
-CIFAR10, CIFAR100, TinyImagenet200, Imagenet1000 and the synthetic sets;
-the segmentation datasets and the label subset wrappers are still to be
+CIFAR10, CIFAR100, TinyImagenet200, Imagenet1000, the synthetic sets and
+the label-subset wrappers; the segmentation datasets are still to be
 ported."""
 
 from .cifar import (
@@ -11,6 +11,13 @@ from .cifar import (
     ArrayDataset,
     LearnableSyntheticDataset,
     SyntheticDataset,
+)
+from .custom import (
+    ExcludeLabelsDataset,
+    IncludeClassesDataset,
+    IncludeLabelsDataset,
+    ResampleLabelsDataset,
+    wrap_dataset,
 )
 from .imagenet import Imagenet1000, TinyImagenet200
 from .loader import DataLoader, PrefetchLoader

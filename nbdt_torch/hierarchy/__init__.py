@@ -1,4 +1,5 @@
-"""Host-side hierarchy: the graph, wnid naming and the classifier probe."""
+"""Host-side hierarchy: the graph, wnids and mini-corpora, the builders,
+generation and checks, the classifier probe and the HTML visualiser."""
 
 from .digraph import (
     Digraph,

@@ -1,11 +1,12 @@
-"""Classifier probe, class centers, graph file names and the induced
-hierarchy's generation.
+"""Classifier probe, class centers, graph file names, hierarchy generation
+and checks.
 
-Counterpart of ``nbdt_tpu/hierarchy/generate.py`` for ``method="induced"``:
-centers are the rows of a classifier, taken from a torch module (the first
-``nn.Linear`` among :data:`CLASSIFIER_NAMES`), a state dict, or given as an
-array; the graph is induced, pruned and written as the reference's
-node-link JSON.
+Counterpart of ``nbdt_tpu/hierarchy/generate.py``. ``generate_hierarchy``
+builds an induced, WordNet or random hierarchy, prunes and augments it and
+writes the reference's node-link JSON. Induced centers are the rows of a
+classifier, taken from a torch module (the first ``nn.Linear`` among
+:data:`CLASSIFIER_NAMES`), a state dict, a local ``.pth``, or given as an
+array.
 """
 
 from __future__ import annotations
@@ -18,8 +19,14 @@ import numpy as np
 import torch.nn as nn
 
 from ..utils import ASSETS_ROOT, Colors
-from .build import build_induced_graph, prune_single_successor_nodes
-from .digraph import Digraph, get_depth, write_graph
+from .build import (
+    augment_graph,
+    build_induced_graph,
+    build_minimal_wordnet_graph,
+    build_random_graph,
+    prune_single_successor_nodes,
+)
+from .digraph import Digraph, get_depth, get_leaves, get_roots, read_graph, write_graph
 
 # The JAX package's probe order, then torchvision's ViT classifier.
 CLASSIFIER_NAMES = ("linear", "fc", "classifier", "head", "output", "heads.head")
@@ -67,9 +74,27 @@ def get_centers_from_state_dict(state_dict) -> Optional[np.ndarray]:
     return None
 
 
-def resolve_centers(centers=None, state_dict=None, model: Optional[nn.Module] = None
-                    ) -> np.ndarray:
-    """Class centers ``[C, D]`` from whichever source was given."""
+def get_centers_from_checkpoint(checkpoint: str) -> np.ndarray:
+    """The classifier weight ``[C, D]`` of a local torch ``.pth``. The JAX
+    package's ``.msgpack`` checkpoints are not read yet (ROADMAP A12)."""
+    if str(checkpoint).endswith(".msgpack"):
+        raise NotImplementedError(
+            f"{checkpoint}: reading the JAX package's .msgpack checkpoints is not ported to "
+            "nbdt_torch yet (ROADMAP A12); pass a torch .pth")
+    from ..model import load_checkpoint
+
+    state_dict = load_checkpoint(checkpoint)
+    fc = get_centers_from_state_dict(state_dict)
+    if fc is None:
+        raise ValueError(f"Could not find FC weights in checkpoint {checkpoint} with keys: "
+                         f"{list(state_dict)[:20]}")
+    return fc
+
+
+def resolve_centers(centers=None, state_dict=None, model: Optional[nn.Module] = None,
+                    checkpoint: Optional[str] = None) -> np.ndarray:
+    """Class centers ``[C, D]`` from the first source given, in the JAX
+    package's order: centers, state dict, checkpoint, model."""
     if centers is not None:
         return np.asarray(centers)
     if state_dict is not None:
@@ -77,6 +102,8 @@ def resolve_centers(centers=None, state_dict=None, model: Optional[nn.Module] = 
         if fc is None:
             raise ValueError(f"No FC key found in state dict: {list(state_dict)[:20]}")
         return fc
+    if checkpoint is not None:
+        return get_centers_from_checkpoint(checkpoint)
     if model is not None:
         kernel, _ = get_classifier_from_module(model)
         if kernel is None:
@@ -84,7 +111,8 @@ def resolve_centers(centers=None, state_dict=None, model: Optional[nn.Module] = 
                 f"A model was given but it has no nn.Linear named one of {CLASSIFIER_NAMES}; "
                 f"pass centers= directly. Model type: {type(model).__name__}")
         return kernel.T
-    raise ValueError("Need one of `centers`, `state_dict`, `model` to induce a hierarchy.")
+    raise ValueError("Need one of `centers`, `state_dict`, `checkpoint`, `model` to induce a "
+                     "hierarchy.")
 
 
 def generate_graph_fname(
@@ -147,13 +175,26 @@ def assert_all_wnids_in_graph(G: Digraph, wnids) -> None:
     assert not missing, missing
 
 
+def get_graph_path_from_args(dataset, method, root=None, path="", **kwargs) -> str:
+    """``path``, else ``<root>/<dataset>/<graph fname>.json``; ``root``
+    defaults to ``out/hierarchies`` (the vendored hierarchies are the JAX
+    package's files, and the port writes none of them by default)."""
+    if path:
+        return path
+    fname = generate_graph_fname(method=method, **kwargs)
+    return os.path.join(root or os.path.join("out", "hierarchies"), dataset, f"{fname}.json")
+
+
 def generate_hierarchy(
     dataset: str,
     method: str = "induced",
+    seed: int = 0,
     branching_factor: int = 2,
+    extra: int = 0,
     no_prune: bool = False,
     fname: str = "",
     path: str = "",
+    multi_path: bool = False,
     induced_linkage: str = "ward",
     induced_affinity: str = "euclidean",
     checkpoint: Optional[str] = None,
@@ -165,35 +206,46 @@ def generate_hierarchy(
     hierarchies_root: Optional[str] = None,
     force: bool = False,
 ) -> str:
-    """Induce, prune and write a hierarchy; returns the JSON path, which is
-    ``path`` or ``<hierarchies_root>/<dataset>/<graph fname>.json``. Only
-    ``method="induced"`` is ported; ``checkpoint`` only names the file. A
-    file among the JAX package's vendored hierarchies is overwritten only
+    """Build (``method`` "induced", "wordnet" or "random"), prune unless
+    ``no_prune``, augment by ``extra`` percent, and write a hierarchy;
+    returns the JSON path, which is ``path`` or
+    ``<hierarchies_root>/<dataset>/<graph fname>.json``. ``multi_path``
+    gives the WordNet builder every hypernym of a synset (the JAX package's
+    ``single_path``, which it passes on as ``multi_path``) and the file
+    name its "-multi" suffix. Induced centers come from ``centers``,
+    ``state_dict``, ``model`` or ``checkpoint`` (which also names the file).
+    A file among the JAX package's vendored hierarchies is overwritten only
     with ``force``."""
-    if method != "induced":
-        raise NotImplementedError(
-            f'method "{method}" is not ported yet (ROADMAP A9); the port induces hierarchies')
     if wnids is None:
         from ..assets import get_dataset_wnids
 
         wnids = get_dataset_wnids(dataset)
-    G = build_induced_graph(wnids, resolve_centers(centers, state_dict, model),
-                            branching_factor=branching_factor, dataset=dataset)
+    if method == "wordnet":
+        G = build_minimal_wordnet_graph(wnids, multi_path)
+    elif method == "random":
+        G = build_random_graph(wnids, seed=seed, branching_factor=branching_factor)
+    elif method == "induced":
+        G = build_induced_graph(wnids, resolve_centers(centers, state_dict, model, checkpoint),
+                                branching_factor=branching_factor, dataset=dataset)
+    else:
+        raise NotImplementedError(f'Method "{method}" not yet handled.')
     print_graph_stats(G, "matched")
     assert_all_wnids_in_graph(G, wnids)
     if not no_prune:
         G = prune_single_successor_nodes(G)
         print_graph_stats(G, "pruned")
         assert_all_wnids_in_graph(G, wnids)
+    if extra > 0:
+        G, n_extra, n_imaginary = augment_graph(G, extra, True)
+        print(f"[extra] \t Extras: {n_extra} \t Imaginary: {n_imaginary}")
+        print_graph_stats(G, "extra")
+        assert_all_wnids_in_graph(G, wnids)
 
-    if not path:
-        name = generate_graph_fname(method=method, branching_factor=branching_factor,
-                                    no_prune=no_prune, fname=fname,
-                                    induced_linkage=induced_linkage,
-                                    induced_affinity=induced_affinity, checkpoint=checkpoint,
-                                    arch=arch)
-        root = hierarchies_root or os.path.join(ASSETS_ROOT, "hierarchies")
-        path = os.path.join(root, dataset, f"{name}.json")
+    path = get_graph_path_from_args(
+        dataset, method, root=hierarchies_root, path=path, seed=seed,
+        branching_factor=branching_factor, extra=extra, no_prune=no_prune, fname=fname,
+        multi_path=multi_path and method == "wordnet", induced_linkage=induced_linkage,
+        induced_affinity=induced_affinity, checkpoint=checkpoint, arch=arch)
     _guard_vendored_fixture(path, force)
     write_graph(G, path)
     Colors.green("==> Wrote tree to {}".format(path))
@@ -210,3 +262,39 @@ def _guard_vendored_fixture(path, force: bool) -> None:
         raise FileExistsError(
             f"refusing to overwrite the vendored hierarchy {target}; pass force=True, or "
             "write elsewhere with hierarchies_root= or path=")
+
+
+def check_hierarchy(G: Digraph, wnids) -> dict:
+    """Leaf coverage and rootedness of a graph against a wnid list."""
+    wnid_set = {w.strip() for w in wnids}
+    missing_leaves = wnid_set - set(get_leaves(G))
+    missing_nodes = wnid_set - set(G.nodes)
+    num_roots = len(list(get_roots(G)))
+    return {
+        "ok": not missing_leaves and not missing_nodes and num_roots == 1,
+        "missing_leaves": sorted(missing_leaves),
+        "missing_nodes": sorted(missing_nodes),
+        "num_roots": num_roots,
+    }
+
+
+def test_hierarchy(dataset: str, path: str, wnids=None) -> bool:
+    """Check the hierarchy at ``path`` and print the reference's report."""
+    if wnids is None:
+        from ..assets import get_dataset_wnids
+
+        wnids = get_dataset_wnids(dataset)
+    print("==> Reading from {}".format(path))
+    report = check_hierarchy(read_graph(path), wnids)
+    name = Path(path).stem
+    print(f"[{name}] \t leaves missing: {len(report['missing_leaves'])}")
+    print(f"[{name}] \t nodes missing: {len(report['missing_nodes'])}")
+    if report["num_roots"] == 1:
+        Colors.green("Found just 1 root.")
+    else:
+        Colors.red(f"Found {report['num_roots']} roots. Should be only 1.")
+    if report["ok"]:
+        Colors.green("==> All checks pass!")
+    else:
+        Colors.red("==> Test failed")
+    return report["ok"]

@@ -1,31 +1,37 @@
-"""WordNet ID naming and wnid list reading.
+"""WordNet IDs, synsets, mini-corpora and wnid list files.
 
-Counterpart of the naming half of ``nbdt_tpu/hierarchy/wnid.py``. A wnid is
-``<pos><offset:08d>`` (e.g. ``n02691156``). Names come from an installed
+Counterpart of ``nbdt_tpu/hierarchy/wnid.py``. A wnid is
+``<pos><offset:08d>`` (e.g. ``n02691156``). Synsets come from an installed
 mini-corpus, else from the NLTK WordNet corpus where it is installed, else
-from a :class:`FakeSynset` placeholder, exactly as in the JAX package. NLTK
-stays optional.
+are a :class:`FakeSynset` placeholder, exactly as in the JAX package. NLTK
+stays optional and nothing here downloads: offline, a mini-corpus derived
+from a vendored ``graph-wordnet.json`` runs the WordNet flows.
 """
 
 from __future__ import annotations
 
+import json
 import os
+
+from ..utils import makeparentdirs
 
 _WORDNET_CHECKED = False
 _WORDNET_AVAILABLE = False
-_MINI_CORPUS = None  # {wnid: {"name": str, ...}}
+_MINI_CORPUS = None  # {wnid: {"name": str, "hypernyms": [wnid, ...]}}
 
 
 def install_mini_corpus(table) -> None:
-    """Install a vendored mini WordNet, a dict (or JSON path) of
-    ``{wnid: {"name": ...}}``. It takes precedence over NLTK while
-    installed."""
+    """Install a vendored mini WordNet: a dict (or JSON path) of
+    ``{wnid: {"name": ..., "hypernyms": [wnid, ...]}}``, or a node-link
+    hierarchy JSON (a vendored ``graph-wordnet.json``), whose hypernym
+    chains are derived by :func:`_mini_corpus_from_node_link`. It takes
+    precedence over NLTK while installed."""
     global _MINI_CORPUS
     if isinstance(table, (str, os.PathLike)):
-        import json
-
         with open(table) as f:
             table = json.load(f)
+    if isinstance(table, dict) and "nodes" in table and "links" in table:
+        table = _mini_corpus_from_node_link(table)
     _MINI_CORPUS = dict(table)
 
 
@@ -34,10 +40,49 @@ def clear_mini_corpus() -> None:
     _MINI_CORPUS = None
 
 
+def mini_corpus_from_graph_json(path) -> dict:
+    """The mini-corpus of a vendored WordNet hierarchy JSON. Pruning
+    contracts every single-successor chain into its surviving child and
+    records the removed ancestors in the node's ``contraction`` dict,
+    nearest first, so each node's hypernym chain is ``node -> contraction
+    keys... -> parent``; inverting that gives back the WordNet relations the
+    builder saw, and the WordNet builder then reproduces the vendored graph
+    offline."""
+    with open(str(path)) as f:
+        return _mini_corpus_from_node_link(json.load(f))
+
+
+def _mini_corpus_from_node_link(data: dict) -> dict:
+    table: dict = {}
+
+    def ensure(wnid, name):
+        table.setdefault(wnid, {"name": name, "hypernyms": []})
+
+    for node in data["nodes"]:
+        ensure(node["id"], node.get("label", node["id"]))
+        for cw, cd in (node.get("contraction") or {}).items():
+            ensure(cw, cd.get("label", cw))
+
+    chains = {}
+    for node in data["nodes"]:
+        chain = [node["id"]] + list((node.get("contraction") or {}).keys())
+        for lower, upper in zip(chain, chain[1:]):
+            table[lower]["hypernyms"] = [upper]
+        chains[node["id"]] = chain
+
+    for link in data["links"]:
+        top = chains[link["target"]][-1]
+        # Append: a multi-path hierarchy gives a node several parents.
+        hyp = table[top].setdefault("hypernyms", [])
+        if link["source"] not in hyp:
+            hyp.append(link["source"])
+    return table
+
+
 class MiniSynset:
     """Synset backed by a mini-corpus table: the NLTK surface the builders
-    touch (``pos/offset/name/hypernyms``, ``common_hypernyms`` including
-    itself as NLTK's does, ``max_depth``)."""
+    and analyzers touch (``pos/offset/name/definition/hypernyms``,
+    ``common_hypernyms`` including itself as NLTK's does, ``max_depth``)."""
 
     def __init__(self, wnid: str, table: dict):
         self.wnid = wnid
@@ -51,6 +96,9 @@ class MiniSynset:
 
     def name(self) -> str:
         return self._table[self.wnid]["name"]
+
+    def definition(self) -> str:
+        return self._table[self.wnid].get("definition", "(mini-corpus)")
 
     def hypernyms(self):
         return [MiniSynset(w, self._table) for w in self._table[self.wnid].get("hypernyms", [])]
@@ -102,6 +150,12 @@ class FakeSynset:
     def name(self) -> str:
         return "(generated)"
 
+    def definition(self) -> str:
+        return "(generated)"
+
+    def hypernyms(self):
+        return []
+
 
 def wordnet_available() -> bool:
     """True if a mini-corpus is installed or NLTK's WordNet corpus loads."""
@@ -118,6 +172,13 @@ def wordnet_available() -> bool:
         except Exception:  # no nltk, or no corpus: degrade to FakeSynset
             _WORDNET_AVAILABLE = False
     return _WORDNET_AVAILABLE
+
+
+def maybe_install_wordnet() -> bool:
+    """Whether a WordNet corpus (NLTK's, or an installed mini-corpus) can
+    serve synset lookups. Unlike the JAX package this never calls
+    ``nltk.download``: the port downloads nothing."""
+    return wordnet_available()
 
 
 def wnid_to_synset(wnid: str):
@@ -153,3 +214,9 @@ def wnid_to_name(wnid: str) -> str:
 def get_wnids(path_wnids) -> list:
     with open(str(path_wnids)) as f:
         return [wnid.strip() for wnid in f.readlines() if wnid.strip()]
+
+
+def write_wnids(wnids, path) -> None:
+    makeparentdirs(path)
+    with open(str(path), "w") as f:
+        f.write("\n".join(wnids))

@@ -12,6 +12,16 @@ accuracy of a trained backbone, as the reference evaluates it:
     python -m nbdt_torch.main --dataset TinyImagenet200 --arch wrn28_10 \
         --hierarchy induced-wrn28_10 --eval --checkpoint-path ckpt.pth \
         --analysis SoftEmbeddedDecisionRules
+
+Zero-shot: train without some classes, then score another dataset's test
+set in a superclass label space (WordNet offline through a mini-corpus):
+
+    python -m nbdt_torch.main --dataset CIFAR10 --arch vit_b16 \
+        --exclude-labels 3 5 --loss SoftTreeSupLoss --hierarchy wordnet
+    python -m nbdt_torch.main --dataset CIFAR10 --arch vit_b16 --eval \
+        --checkpoint-path ckpt.pth --dataset-test CIFAR100 --disable-test-eval \
+        --analysis SuperclassNBDT --superclass-wnids n00015388 n04524313 \
+        --mini-corpus corpus.json
 """
 
 from __future__ import annotations
@@ -25,10 +35,6 @@ NOT_PORTED = {
     "mesh": "A13",
     "zero": "A13",
     "multihost": "A13",
-    "include_labels": "A10",
-    "exclude_labels": "A10",
-    "include_classes": "A10",
-    "probability_labels": "A10",
     "profile": "A16",
 }
 
@@ -47,8 +53,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--loss", default="CrossEntropyLoss", choices=list(losses.names))
     parser.add_argument("--metric", default="top1", choices=metrics.names)
     parser.add_argument("--analysis", default=None, choices=[None, *analysis.names],
-                        help="analyzer run beside the eval (Superclass and SuperclassNBDT: "
-                             "not ported yet (A10); VisualizeHierarchyInference: A9)")
+                        help="analyzer run beside the eval")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--path-resume", default="")
     parser.add_argument("--eval", action="store_true")
@@ -67,7 +72,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--disable-test-eval", action="store_true")
     parser.add_argument("--checkpoint-dir", default="./checkpoint")
     parser.add_argument("--mini-corpus", default=None,
-                        help="vendored mini WordNet table (JSON) naming induced nodes offline")
+                        help="vendored mini WordNet (a corpus table JSON or a vendored "
+                             "wordnet hierarchy JSON): runs the Superclass hypernym mapping "
+                             "and the WordNet flows offline")
     parser.add_argument("--cache-dataset", action="store_true",
                         help="upload the uint8 train set to the device once and gather, "
                              "augment and normalize there")
@@ -92,13 +99,10 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tree-update-every-epochs", "--tueve", type=int, default=10)
     parser.add_argument("--tree-update-end-epochs", "--tuene", type=int, default=120)
     # data subsets
-    parser.add_argument("--include-labels", nargs="*", type=int, default=(),
-                        help="not ported yet (A10)")
-    parser.add_argument("--exclude-labels", nargs="*", type=int, default=(),
-                        help="not ported yet (A10)")
-    parser.add_argument("--include-classes", nargs="*", type=str, default=(),
-                        help="not ported yet (A10)")
-    parser.add_argument("--probability-labels", default=None, help="not ported yet (A10)")
+    parser.add_argument("--include-labels", nargs="*", type=int, default=())
+    parser.add_argument("--exclude-labels", nargs="*", type=int, default=())
+    parser.add_argument("--include-classes", nargs="*", type=str, default=())
+    parser.add_argument("--probability-labels", default=None)
     # analysis
     parser.add_argument("--superclass-wnids", nargs="*", type=str, default=None)
     parser.add_argument("--save-k", type=int, default=20)
@@ -150,7 +154,10 @@ def refuse_not_ported(args) -> None:
 
 
 def build_datasets(args):
-    from .data import SyntheticDataset, get_dataset
+    """The train and test sets, wrapped by the label-subset flags. An
+    explicit ``--dataset-test`` names its own test distribution and stays
+    unwrapped (resampling is a train-only augmentation either way)."""
+    from .data import SyntheticDataset, get_dataset, wrap_dataset
     from .utils import DATASET_TO_NUM_CLASSES, default_image_size
 
     if args.synthetic:
@@ -164,6 +171,13 @@ def build_datasets(args):
                                              download=args.download)
         testset = get_dataset(args.dataset_test or args.dataset)(
             root=args.data_root, train=False, download=args.download)
+    # getattr: a hand-built namespace may leave the subset flags out
+    subset = {k: getattr(args, k, ()) for k in ("include_labels", "exclude_labels",
+                                                 "include_classes")}
+    trainset = wrap_dataset(trainset, probability_labels=getattr(args, "probability_labels", None),
+                            **subset)
+    if not args.dataset_test:
+        testset = wrap_dataset(testset, **subset)
     if list(trainset.classes) != list(testset.classes) and not args.disable_test_eval:
         raise SystemExit("error: train/test class mismatch requires --disable-test-eval: "
                          f"{trainset.classes[:5]}... vs {testset.classes[:5]}...")
@@ -192,6 +206,13 @@ def build_analyzer(args, tree, testset, device):
         kwargs["tree"] = tree
     if "device" in params:
         kwargs["device"] = device
+    if issubclass(cls, analysis.Superclass):
+        if args.superclass_wnids is None:
+            raise SystemExit(f"error: --analysis {args.analysis} needs --superclass-wnids (the "
+                             "hypernym wnids defining the superclass label space)")
+        kwargs["superclass_wnids"] = args.superclass_wnids
+        if args.dataset_test and args.dataset_test != args.dataset:
+            kwargs["dataset_test"] = args.dataset_test
     if cls is analysis.VisualizeDecisionNode:
         if not args.visualize_decision_node_wnid:
             raise SystemExit("error: --analysis VisualizeDecisionNode needs "
@@ -211,7 +232,7 @@ def main(argv=None):
     from .models import get_model
     from .trainer import TrainConfig, Trainer
     from .tree import Tree
-    from .utils import Colors, hierarchy_to_path_graph, resolve_device
+    from .utils import Colors, default_image_size, hierarchy_to_path_graph, resolve_device
 
     device = resolve_device(args.device)
     if args.mini_corpus:
@@ -220,7 +241,8 @@ def main(argv=None):
         install_mini_corpus(args.mini_corpus)
     trainset, testset = build_datasets(args)
     torch.manual_seed(0)
-    model = get_model(args.arch, len(trainset.classes))
+    model = get_model(args.arch, len(trainset.classes),
+                      image_size=default_image_size(args.dataset))
     if args.checkpoint_path:
         model.load_state_dict(load_checkpoint(args.checkpoint_path), strict=True)
         Colors.green(f"==> Loaded pretrained weights for {args.arch}/{args.dataset} from "
@@ -260,6 +282,9 @@ def main(argv=None):
         cache_dataset=args.cache_dataset,
         cache_crop_pad=args.cache_crop_pad,
         cache_flip=not args.no_cache_flip,
+        include_labels=tuple(args.include_labels or ()),
+        exclude_labels=tuple(args.exclude_labels or ()),
+        include_classes=tuple(args.include_classes or ()),
         name=args.name,
         metric=args.metric,
         disable_test_eval=args.disable_test_eval,

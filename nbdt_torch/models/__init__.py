@@ -1,7 +1,7 @@
 """Backbones of the port: the CIFAR ResNets, the WideResNets, the ViTs, BN
 folding, the converter and the registry."""
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -23,9 +23,19 @@ MODEL_REGISTRY: Dict[str, Callable] = {
 }
 
 
-def get_model(arch: str, num_classes: int, dtype: torch.dtype = torch.float32, **kw):
-    """A backbone of the port by name (``MODEL_REGISTRY``); ``kw`` go to its
-    constructor (``ln_impl``, ``attention_impl``, ``image_size`` for a ViT)."""
+# Backbones built for one input resolution (their position embeddings); the
+# convolutional ones take any.
+FIXED_RESOLUTION = ("vit_b16", "vit_s16")
+
+
+def get_model(arch: str, num_classes: int, dtype: torch.dtype = torch.float32,
+              image_size: Optional[int] = None, **kw):
+    """A backbone of the port by name (``MODEL_REGISTRY``); ``image_size``
+    builds the ViTs for that input resolution (the others ignore it), and
+    ``kw`` go to its constructor (``ln_impl``, ``attention_impl`` for a
+    ViT)."""
     if arch not in MODEL_REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; the port has {sorted(MODEL_REGISTRY)}")
+    if image_size is not None and arch in FIXED_RESOLUTION:
+        kw["image_size"] = image_size
     return MODEL_REGISTRY[arch](num_classes=num_classes, dtype=dtype, **kw)

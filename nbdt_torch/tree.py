@@ -241,6 +241,13 @@ class Tree:
                             path_wnids=path_wnids or self.path_wnids,
                             classes=classes or self.classes, wnids_leaves=self.wnids_leaves)
 
+    def visualize(self, path_html: str, dataset: Optional[str] = None, **kwargs) -> str:
+        """Write this hierarchy's HTML (``hierarchy.vis.generate_hierarchy_vis_from``)."""
+        from .hierarchy.vis import generate_hierarchy_vis_from
+
+        return generate_hierarchy_vis_from(self.G, dataset=dataset or self.dataset,
+                                           path_html=path_html, **kwargs)
+
     @property
     def arrays(self) -> "TreeArrays":
         if self._arrays is None:

@@ -27,6 +27,8 @@ DATASETS = (
     "ADE20K",
 )
 
+METHODS = ("wordnet", "random", "induced")
+
 DATASET_TO_NUM_CLASSES = {
     "CIFAR10": 10,
     "CIFAR100": 100,

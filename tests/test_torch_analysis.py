@@ -6,9 +6,12 @@ accuracies and hit counts, the confusion matrix, the ignored count, the
 scores (within 1e-5: the rules sum in another order), the order of the
 saved samples, and the JPEGs written are held equal. ``device_eval``'s
 counts equal the host path's, in the trainer too. ``build_analyzer``
-constructs every ported name; the three still to be ported exit naming
-their ROADMAP item. Last, the CLI's ``--eval --checkpoint-path --analysis``
-on a tiny WRN prints the NBDT accuracy that the JAX CLI prints.
+constructs all fourteen. ``Superclass`` and ``SuperclassNBDT`` score the
+same logits as JAX's under ``mapping=``, ``mapping_test=``, a mini-corpus
+and ``dataset_test``; ``VisualizeHierarchyInference`` writes JAX's pages.
+Last, the CLI's ``--eval --checkpoint-path --analysis`` on a tiny WRN
+prints the NBDT accuracy that the JAX CLI prints, and the superclass
+accuracies of a zero-shot eval on CIFAR100's classes.
 """
 
 import argparse
@@ -204,6 +207,112 @@ def test_trainer_counts_the_nbdt_accuracy_on_the_device_as_on_the_host():
     assert accs[0][1] == 20
 
 
+def _corpus_table():
+    """The mini-corpora of the vendored CIFAR10 and CIFAR100 WordNet graphs,
+    merged (they agree on every wnid they share)."""
+    from nbdt_torch.hierarchy.wnid import mini_corpus_from_graph_json
+    from nbdt_torch.utils import hierarchy_to_path_graph
+
+    table = {}
+    for dataset in ("CIFAR10", "CIFAR100"):
+        table.update(mini_corpus_from_graph_json(hierarchy_to_path_graph(dataset, "wordnet")))
+    return table
+
+
+@pytest.fixture
+def corpus():
+    from nbdt_tpu.hierarchy import wnid as jwnid
+
+    from nbdt_torch.hierarchy import wnid as twnid
+
+    table = _corpus_table()
+    jwnid.install_mini_corpus(table)
+    twnid.install_mini_corpus(table)
+    yield table
+    jwnid.clear_mini_corpus()
+    twnid.clear_mini_corpus()
+
+
+SUPERCLASS_MODES = ["mapping", "mapping_test", "corpus", "dataset_test"]
+
+
+@pytest.mark.parametrize("mode", SUPERCLASS_MODES)
+@pytest.mark.parametrize("name", ["Superclass", "SuperclassNBDT"])
+def test_superclass_analyzers_match_jax(request, name, mode, capsys):
+    """The same logits and targets through JAX's analyzer and the port's:
+    ``forward`` gives the same predicted and target superclasses, and the
+    lifecycle the same correct/total and accuracy. ``mapping`` maps the
+    synthetic tree's leaves onto two superclasses; ``mapping_test`` takes
+    one class out of the prediction space; ``corpus`` maps the CIFAR10
+    WordNet tree's leaves onto 'animal' and 'vehicle' through the
+    mini-corpus; ``dataset_test`` scores CIFAR100 targets against CIFAR10
+    predictions (the CLI's zero-shot eval)."""
+    import nbdt_tpu.analysis as ja
+
+    import nbdt_torch.analysis as ta
+
+    if mode in ("mapping", "mapping_test"):
+        jtree, ttree = tree_pair("synthetic")
+        wnids = ttree.wnids_leaves
+        mapping = {w: i % 2 for i, w in enumerate(wnids)}
+        kw = dict(superclass_wnids=["a", "b"], mapping=mapping)
+        if mode == "mapping_test":
+            kw["mapping"] = dict(mapping, **{wnids[0]: -1})
+            kw["mapping_test"] = mapping
+        n_test = len(wnids)
+    else:
+        request.getfixturevalue("corpus")
+        jtree, ttree = tree_pair("CIFAR10-wordnet")
+        kw = dict(superclass_wnids=["n00015388", "n04524313"])
+        n_test = 10
+        if mode == "dataset_test":
+            kw["dataset_test"] = "CIFAR100"
+            n_test = 100
+    j = getattr(ja, name)(tree=jtree, **kw)
+    t = getattr(ta, name)(tree=ttree, device="cpu", **kw)
+    np.testing.assert_array_equal(t.mapping_pred, j.mapping_pred)
+    np.testing.assert_array_equal(t.mapping_target, j.mapping_target)
+    rng = np.random.RandomState(5)
+    C = len(ttree.wnids_leaves)
+    batches = [(rng.randn(40, C).astype(np.float32), rng.randint(0, n_test, 40))
+               for _ in range(3)]
+    for logits, targets in batches:
+        for got, want in zip(t.forward(logits, targets), j.forward(logits, targets)):
+            np.testing.assert_array_equal(got, want)
+    for an in (j, t):
+        an.start_test(0)
+        for logits, targets in batches:
+            an.update_batch(logits, targets)
+        an.end_test(0)
+    assert (t.correct, t.total, t.accuracy) == (j.correct, j.total, j.accuracy)
+    assert t.total > 0
+    if mode == "dataset_test":  # 44 of CIFAR100's classes are animals or vehicles
+        assert (t.mapping_target >= 0).sum() == 44 and (t.mapping_pred >= 0).sum() == 8
+
+
+def test_visualize_hierarchy_inference_writes_jax_pages(tmp_path):
+    """VisualizeHierarchyInference writes, per sample up to its limit, the
+    page that JAX's writes: the decision path highlighted with its edge
+    probabilities."""
+    import nbdt_tpu.analysis as ja
+
+    import nbdt_torch.analysis as ta
+
+    jtree, ttree = tree_pair("CIFAR10")
+    j = ja.VisualizeHierarchyInference(tree=jtree, out_dir=str(tmp_path / "jax"), limit=5)
+    t = ta.VisualizeHierarchyInference(tree=ttree, out_dir=str(tmp_path / "port"), limit=5,
+                                       device="cpu")
+    rng = np.random.RandomState(2)
+    batches = [(rng.randn(3, 10).astype(np.float32) * 3, rng.randint(0, 10, 3))
+               for _ in range(3)]
+    for an in (j, t):
+        _run(an, batches, train=False)
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 5
+    for n in names:
+        assert (tmp_path / "port" / n).read_bytes() == (tmp_path / "jax" / n).read_bytes()
+
+
 def _args(name, tree):
     return argparse.Namespace(analysis=name, superclass_wnids=[tree.wnids_leaves[0]],
                               visualize_decision_node_wnid=tree.wnids_leaves[0],
@@ -211,10 +320,10 @@ def _args(name, tree):
 
 
 def test_build_analyzer_constructs_every_ported_analyzer():
-    """Every ported name builds through the CLI's build_analyzer with the
-    live tree and the run's device (mirrors tests/test_analysis.py's JAX
-    check); the three not ported raise naming their ROADMAP item, and the
-    CLI exits on them before it builds anything."""
+    """Every analyzer builds through the CLI's build_analyzer with the live
+    tree and the run's device (mirrors tests/test_analysis.py's JAX check):
+    none is left to port; the superclass pair takes --superclass-wnids and
+    keeps the host loop, and VisualizeHierarchyInference its rules."""
     import nbdt_tpu.analysis as ja
 
     import nbdt_torch.analysis as ta
@@ -226,19 +335,17 @@ def test_build_analyzer_constructs_every_ported_analyzer():
         classes = tree.classes
 
     assert ta.names == ja.names and len(ta.names) == 14
-    assert sorted(PORTED + list(ta.NOT_PORTED)) == sorted(ta.names)
-    for name in PORTED:
+    assert ta.NOT_PORTED == {}
+    for name in ta.names:
         an = build_analyzer(_args(name, tree), tree, DS(), torch.device("cpu"))
         assert type(an).__name__ == name
         if hasattr(an, "rules"):
             assert an.rules.tree is tree and an.rules.device.type == "cpu"
         if isinstance(an, ta.ScoreSave):
             assert an.k == 3
-    for name, item in ta.NOT_PORTED.items():
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            build_analyzer(_args(name, tree), tree, DS(), torch.device("cpu"))
-        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-            main(["--synthetic", "--device", "cpu", "--analysis", name])
+        if isinstance(an, ta.Superclass):
+            assert an.superclass_wnids == [tree.wnids_leaves[0]] and an.device_eval() is None
+            assert an.rules_test is an.rules
 
 
 def _tiny_wrn_jax(num_classes=10, dtype=None):
@@ -287,6 +394,62 @@ def test_cli_eval_checkpoint_analysis_matches_jax(tmp_path, monkeypatch, capsys)
     line = re.compile(r"\[NBDT-Soft\] Accuracy: .*")
     assert line.findall(tout) == line.findall(jout) and len(line.findall(tout)) == 1
     assert tacc == jacc
+
+
+@pytest.mark.parametrize("analysis,label", [("Superclass", "Superclass"),
+                                            ("SuperclassNBDT", "Superclass-NBDT")])
+def test_cli_zero_shot_eval_matches_jax(tmp_path, monkeypatch, capsys, analysis, label):
+    """Both CLIs' zero-shot eval of one tiny WRN .pth trained without cat
+    and dog: CIFAR100's synthetic test set scored in the superclass space of
+    'animal' and 'vehicle' through the merged mini-corpus prints the same
+    correct/total, and the accuracy is the run's score."""
+    import json
+
+    import nbdt_tpu.main as jmain
+    import nbdt_tpu.models as jmodels
+    import nbdt_tpu.models.convert as jconvert
+    from nbdt_tpu.hierarchy import wnid as jwnid
+    from test_torch_wrn import wrn_pair
+
+    import nbdt_torch.main as tmain
+    import nbdt_torch.models as tmodels
+    from nbdt_torch.hierarchy import wnid as twnid
+
+    name = "wrn10_2_test"
+    _, _, port = wrn_pair(32)
+    path = tmp_path / "tiny.pth"
+    torch.save(port.state_dict(), path)
+    table = tmp_path / "corpus.json"
+    table.write_text(json.dumps(_corpus_table()))
+    monkeypatch.setitem(tmodels.MODEL_REGISTRY, name, _tiny_wrn_port)
+    monkeypatch.setitem(jconvert._ARCH_MAPPERS, name, jconvert._wrn_key_to_path)
+    jmodels.register_model(name, _tiny_wrn_jax)
+    args = ["--synthetic", "--dataset", "CIFAR10", "--arch", name, "--batch-size", "16",
+            "--hierarchy", "wordnet", "--eval", "--checkpoint-path", str(path),
+            "--exclude-labels", "3", "5", "--dataset-test", "CIFAR100", "--disable-test-eval",
+            "--analysis", analysis, "--superclass-wnids", "n00015388", "n04524313",
+            "--mini-corpus", str(table), "--no-progress", "--checkpoint-dir", str(tmp_path)]
+    from nbdt_torch.analysis import Superclass
+    from nbdt_torch.assets import get_dataset_wnids
+    from nbdt_torch.data import SyntheticDataset
+
+    try:
+        jacc = jmain.main(args)
+        jout = capsys.readouterr().out
+        tacc = tmain.main(args + ["--device", "cpu"])
+        tout = capsys.readouterr().out
+        mapping, _ = Superclass.build_mapping(get_dataset_wnids("CIFAR100"),
+                                              ["n00015388", "n04524313"])
+    finally:
+        jmodels.MODEL_REGISTRY.pop(name)
+        jwnid.clear_mini_corpus()
+        twnid.clear_mini_corpus()
+    line = re.compile(rf"\[{label}\] Accuracy: [\d.]+%, (\d+)/(\d+)")
+    assert line.findall(tout) == line.findall(jout) and len(line.findall(tout)) == 1
+    assert tacc == jacc and "Mapped 8 classes" in tout
+    # the CIFAR100 test samples whose class maps to a superclass
+    labels = SyntheticDataset(100, size=32, seed=1).labels
+    assert int(line.findall(tout)[0][1]) == int((mapping[labels] >= 0).sum())
 
 
 def test_cli_trains_and_evaluates_wrn_on_tinyimagenet(tmp_path, monkeypatch, capsys):

@@ -459,8 +459,7 @@ def test_main_trains_on_synthetic_data(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--analysis", "Superclass"], "A10"), (["--pretrained"], "A12"),
-    (["--mesh"], "A13"), (["--zero"], "A13"), (["--exclude-labels", "3"], "A10"),
+    (["--pretrained"], "A12"), (["--mesh"], "A13"), (["--zero"], "A13"),
     (["--profile", "out"], "A16"), (["--bn-impl", "bf16"], "A3"),
     (["--checkpoint-backend", "orbax"], "A13")])
 def test_main_refuses_flags_not_ported(flag, item):
@@ -468,6 +467,25 @@ def test_main_refuses_flags_not_ported(flag, item):
 
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         main(["--synthetic", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag,kept", [
+    (["--analysis", "Superclass", "--superclass-wnids", "n02691156"], 10),
+    (["--exclude-labels", "3"], 9), (["--include-labels", "0", "7"], 2),
+    (["--include-classes", "class2"], 1), (["--probability-labels", "0.5"], 10)])
+def test_main_runs_the_zero_shot_flags(tmp_path, capsys, flag, kept):
+    """The label-subset and superclass flags that the port once refused
+    (ROADMAP A10) now run: an eval over the wrapped test set (the train
+    set's resampling leaves the test set whole), whose labels are the kept
+    classes only."""
+    from nbdt_torch.main import build_datasets, get_parser, main
+
+    argv = ["--synthetic", "--dataset", "CIFAR10", "--arch", "ResNet10", "--batch-size", "32",
+            "--eval", "--device", "cpu", "--checkpoint-dir", str(tmp_path), *flag]
+    assert 0 <= main(argv) <= 100
+    _, testset = build_datasets(get_parser().parse_args(argv))
+    assert len(set(np.asarray(testset.labels)[getattr(testset, "new_to_old", slice(None))]
+                   .tolist())) == kept
 
 
 def test_parser_keeps_the_flag_surface():
