@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's five paths through its entry points, with seeded random
+Drives the port's paths through its entry points, with seeded random
 weights: soft-NBDT ResNet18 on the CIFAR10 induced hierarchy at batch 8192,
 soft-NBDT ViT-B/16 (224px, 1000 classes, bf16 stream, the fused LayerNorm
 kernel) on the Imagenet1000 induced hierarchy at batch 256, the 3x3 conv
@@ -18,7 +18,10 @@ TinyImagenet200, then ``--eval --checkpoint-path --analysis``), and the
 zero-shot flow with ViT-B/16 in f32 (the CLI trains on CIFAR10 at 32px
 without two classes on the WordNet tree, then scores CIFAR100's classes with
 the Superclass analyzers through a mini-corpus; the Trainer at 224px on 1000
-classes with 100 unseen). Builds every
+classes with 100 unseen), and the ImageNet path (EfficientNet-B7b at 600px,
+3 requests of 64, and resnet50 at 224px, 3 requests of 256, through the
+fused head on the Imagenet1000 induced trees at D=2560 and D=2048, C=1000;
+their bf16 serving fns; the CLI's ``--arch efficientnet_b7b --eval``). Builds every
 hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
 PyTorch version, checks each path's launch counts and outputs, and times the
 kernels and requests with CUDA events. Exits nonzero, printing no result,
@@ -30,7 +33,7 @@ Phases: device, build, the conv probe's inputs, kernel vs plain (soft_head,
 layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
 its f32 gate, its serving fn, the conv probe path (one request, then the
 probe's parity and timing phases), the training path, the WRN-28-10 serving
-and training path, the zero-shot path, times.
+and training path, the zero-shot path, the ImageNet path, times.
 """
 
 from __future__ import annotations
@@ -150,6 +153,36 @@ Z3_XSTEP_BATCH = 2
 # random-weight WRN differently (bf16 convs over 28 layers), so this is a
 # floor on their argmax agreement, not an exactness gate.
 WRN_BF16_AGREE = 0.9
+# ImageNet path (BASELINE.json config #4 and ROADMAP A3), f32 with TF32 off,
+# the Imagenet1000 induced trees (C=1000): EfficientNet-B7b at full width
+# and depth (D=2560, 55 MBConv blocks) at its published 600px, 3 requests of
+# 64 (4.83 TFLOP each, by nbdt_torch/tools/count_work.py); torchvision's
+# resnet50 (D=2048) at 224px, 3 requests of 256 (2.09 TFLOP each). Each has
+# 3 timed requests, and 16 images calibrate its BatchNorm statistics and its
+# classifier. The CLI evaluates --synthetic Imagenet1000 (224px) at batch 32.
+EFF_BATCH = 64
+EFF_IMG = 600
+EFF_DIM = 2560
+R50_BATCH = 256
+R50_IMG = 224
+R50_DIM = 2048
+IMNET_CLASSES = 1000
+IMNET_TIMED = 3
+IMNET_CAL = 16
+IMNET_CLI_BATCH = 32
+# B1 on a path's head: 7 rotating copies of its f32 W (8-10 MB each) are
+# more than the 50 MB L2, so W comes from HBM, as after a backbone's pass.
+PATH_W_SETS = 7
+# resnet50's folded serving fn against the unfolded f32 plain path (bench.py
+# gates bf16-folded on argmax against f32): in f32, argmax 1.0 on rows whose
+# top-2 gap exceeds TOL (the fold alone); in bf16, a floor on all rows. bf16
+# rounding through 53 random-weight layers flips close rows: in a CPU run of
+# these functions at 224px on 32 of these images, the unfolded bf16 backbone
+# agreed with f32 on 0.78125 of rows and the folded bf16 one on 0.71875
+# (top-1 leaf log-prob off by up to 0.76), while the f32 fold agreed on all
+# (off by 1.2e-4). A broken fold or normalize agrees on about one row in the
+# number of classes predicted (19 of those 32).
+IMNET_BF16_AGREE = 0.5
 
 
 def check(ok: bool, msg: str) -> None:
@@ -281,12 +314,17 @@ def profile_ms(fn, n: int = TIMED) -> tuple:
 
 def print_profile(label: str, wall: float, device: dict, ops: dict, seen: dict) -> None:
     busy = sum(device.values())
-    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+    # kernels whose names share their first 60 characters are summed as one
+    ms, count = {}, {}
+    for k, v in device.items():
+        ms[k[:60]] = ms.get(k[:60], 0.0) + v
+        count[k[:60]] = count.get(k[:60], 0) + seen[k]
+    top = sorted(ms.items(), key=lambda kv: -kv[1])[:6]
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
     print(f"[times] {label} under the profiler: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms (idle share {1 - busy / wall:.4f}); top kernels "
-          f"{json.dumps({k[:60]: round(v, 4) for k, v in top})}; their instances recorded "
-          f"{json.dumps({k[:60]: seen[k] for k, _ in top})}; device ms by aten op "
+          f"{json.dumps({k: round(v, 4) for k, v in top})}; their instances recorded "
+          f"{json.dumps({k: count[k] for k, _ in top})}; device ms by aten op "
           f"{json.dumps({k: round(v, 4) for k, v in top_ops})}", flush=True)
 
 
@@ -1375,6 +1413,256 @@ def run_zero_shot_path(workdir: Path) -> dict:
                              "epochs": z3_epochs, "card_vs_cpu_step": xstep}}
 
 
+def calibrate_batchnorm(model: torch.nn.Module, x: torch.Tensor) -> None:
+    """BatchNorm running statistics of one batch (a train-mode pass with a
+    cumulative average), so that a deep random network's activations keep
+    their scale through its blocks; the affine stays as it was."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        for m in bns:
+            m.reset_running_stats()
+            m.momentum = None
+        model.train()
+        model(x.permute(0, 3, 1, 2))
+        model.eval()
+        for m in bns:
+            m.momentum = 0.1
+
+
+def imagenet_images(n: int, img: int, gen: torch.Generator) -> torch.Tensor:
+    """Seeded uint8 NHWC images: normal noise around a per-image colour
+    (uniform in [32, 224] a channel) at a per-image contrast (std uniform in
+    [8, 64]). Images that differ only in their noise (uniform over [0, 255])
+    leave pooled features that differ by less than bf16 resolves: in a CPU
+    run of resnet50 at 224px the folded bf16 serving fn then agreed with f32
+    on 0.125 of rows."""
+    mean = torch.rand(n, 1, 1, 3, device="cuda", generator=gen) * 192 + 32
+    contrast = torch.rand(n, 1, 1, 1, device="cuda", generator=gen) * 56 + 8
+    noise = torch.randn(n, img, img, 3, device="cuda", generator=gen)
+    return (mean + contrast * noise).clamp_(0, 255).round_().to(torch.uint8)
+
+
+def imagenet_normalize(u8: torch.Tensor) -> torch.Tensor:
+    """uint8 NHWC images -> f32 with ImageNet's mean and std, as a caller
+    normalizes them on the host."""
+    mean = torch.as_tensor(IMAGENET_MEAN, device=u8.device)
+    std = torch.as_tensor(IMAGENET_STD, device=u8.device)
+    return (u8.float() / 255.0 - mean) / std
+
+
+def imagenet_model(ctor, img: int, seed: int):
+    """A backbone on Imagenet1000 with seeded random weights: BatchNorm
+    affine drawn by ``randomize_batchnorm``, its statistics and the
+    classifier calibrated on IMNET_CAL seeded images of the requests'
+    distribution (a 55-block random network calibrated on other inputs
+    amplifies the shift: in a CPU run of B7b at 224px, normal noise
+    calibrated it and normalized uniform images then reached logits of 2e6),
+    on the card in eval mode."""
+    torch.manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    model = ctor(IMNET_CLASSES)
+    randomize_batchnorm(model, gen)
+    model = model.to("cuda", memory_format=torch.channels_last)
+    x = imagenet_normalize(imagenet_images(
+        IMNET_CAL, img, torch.Generator(device="cuda").manual_seed(seed + 2)))
+    calibrate_batchnorm(model, x)
+    classifier = model.output.fc if hasattr(model, "output") else model.fc
+    calibrate_classifier(model, classifier, x, gen)
+    return model
+
+
+def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
+                   seed: int) -> dict:
+    """One ImageNet backbone's main path: REQUESTS requests of ``batch``
+    normalized NHWC f32 images through SoftNBDT(fused=True) (one B1 launch each, counts
+    set to 0 just before) against the plain rules, B1 held to its plain
+    version on the path's own features (no less exact than it against f64,
+    within TOL; argmax 1.0 on rows whose top-2 gap exceeds TOL), a decision
+    path, a profiler line and the request times. Returns the record and the
+    wrappers and inputs for the serving fn."""
+    cgen = torch.Generator(device="cuda").manual_seed(seed)
+    fused = SoftNBDT("Imagenet1000", model, tree=tree, fused=True)
+    plain = SoftNBDT("Imagenet1000", model, tree=tree)
+    requests = [imagenet_normalize(imagenet_images(batch, img, cgen)) for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = [fused(x) for x in requests]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0},
+          f"{name} path launches {launches} over {REQUESTS} requests")
+    for i, (x, out) in enumerate(zip(requests, outs)):
+        ref = plain(x)
+        check(out.shape == (batch, IMNET_CLASSES) and bool(torch.isfinite(out).all()),
+              f"{name} request {i}: bad output {tuple(out.shape)}")
+        dev = float((out.sum(1) - 1).abs().max())
+        check(dev < 1e-4, f"{name} request {i}: leaf probs sum to 1 only within {dev:.3g}")
+        agree, ties, raw = argmax_agreement(out.log(), ref.log(), TOL)
+        check(agree == 1.0, f"{name} request {i}: fused vs plain argmax agreement {agree}")
+        print(f"[imagenet] {name} request {i}: fused vs plain argmax {agree} ({ties} tie rows, "
+              f"raw {raw}), max |prob diff| {float((out - ref).abs().max()):.3g}, max |sum - 1| "
+              f"{dev:.3g}, {int(out.argmax(1).unique().numel())} of {IMNET_CLASSES} classes "
+              "predicted", flush=True)
+    del outs, ref
+    print(f"[imagenet] {name} launches over {REQUESTS} requests: {json.dumps(launches)}; "
+          f"soft_head {st.last_launch['plan']}, grid {st.last_launch['grid']}", flush=True)
+    with torch.no_grad():
+        feats = fused.model(requests[0].permute(0, 3, 1, 2), features_only=True)
+    check(feats.shape == (batch, dim) and feats.dtype == torch.float32,
+          f"{name} features {tuple(feats.shape)} {feats.dtype}")
+    head_err = gate_soft_head(feats, fused._head, True,
+                              f"soft_head on {name} request 0 features B={batch} D={dim} "
+                              f"C={IMNET_CLASSES}", "[imagenet]", exact=True)
+    _, decisions = plain.forward_with_decisions(requests[0][:2])
+    path = " -> ".join(f"{s['name']} ({s['prob']:.3f})" for s in decisions[0])
+    print(f"[imagenet] {name} decision path of image 0 ({len(decisions[0])} steps): {path}",
+          flush=True)
+    x = requests[0]
+    print_profile(f"{name} fused f32 request of {batch} at {img}px",
+                  *profile_ms(lambda: fused(x), n=2))
+    rec = {"batch": batch, "image": img, "features": dim, "classes": IMNET_CLASSES,
+           "requests": REQUESTS, "requests_timed": IMNET_TIMED, "launches": launches,
+           "soft_head_leaf_err": head_err,
+           "fused_ms_per_request": time_cuda(lambda: fused(x), n=IMNET_TIMED, warmup=1),
+           "fused_wall_ms_per_request": wall_ms(lambda: fused(x), n=IMNET_TIMED, warmup=1),
+           "plain_ms_per_request": time_cuda(lambda: plain(x), n=IMNET_TIMED, warmup=1)}
+    return rec, fused, plain, feats
+
+
+def run_imagenet_path(trees: dict, workdir: Path) -> dict:
+    """The ImageNet path (BASELINE.json config #4, ROADMAP A3), f32 with
+    TF32 off, seeded random weights, on the Imagenet1000 induced trees:
+    EfficientNet-B7b at 600px (3 requests of 64) and resnet50 at 224px (3
+    requests of 256) through SoftNBDT(fused=True), each against the plain
+    rules with B1 on its own features (``serve_imagenet``); B7b's bf16
+    serving fn with uint8 input (reported), resnet50's folded bf16 one
+    (gated on argmax against the f32 plain path); then the CLI's
+    ``--arch efficientnet_b7b --synthetic --eval --analysis
+    SoftEmbeddedDecisionRules`` at 224px, its NBDT count equal to the plain
+    rules' on the logits of the same seeded backbone. Returns the records
+    and B1's timings on each path's head."""
+    from nbdt_torch.main import build_datasets, get_parser
+    from nbdt_torch.models import efficientnet_b7b, get_model, resnet50
+    from nbdt_torch.trainer import make_eval_step
+
+    out, heads = {}, {}
+    for name, ctor, tree, batch, img, dim, seed in (
+            ("efficientnet_b7b", efficientnet_b7b, trees["b7b"], EFF_BATCH, EFF_IMG, EFF_DIM, 70),
+            ("resnet50", resnet50, trees["resnet"], R50_BATCH, R50_IMG, R50_DIM, 80)):
+        t0 = time.perf_counter()
+        model = imagenet_model(ctor, img, seed)
+        rec, fused, plain, feats = serve_imagenet(name, model, tree, batch, img, dim, seed + 3)
+        u8 = imagenet_images(batch, img, torch.Generator(device="cuda").manual_seed(seed + 4))
+        ref = plain(imagenet_normalize(u8))
+        fold = name == "resnet50"
+        serve = make_serving_fn(model, tree, bf16=True, fold_bn=fold, uint8_input=True,
+                                normalize=(IMAGENET_MEAN, IMAGENET_STD))
+        served = serve(u8)
+        check(served.shape == (batch, IMNET_CLASSES) and bool(torch.isfinite(served).all()),
+              f"{name} serving fn: bad output")
+        dev = float((served.sum(1) - 1).abs().max())
+        check(dev < 1e-4, f"{name} serving fn: leaf probs sum to 1 only within {dev:.3g}")
+        top = ref.argmax(1, keepdim=True)
+        raw = float((served.argmax(1) == ref.argmax(1)).float().mean())
+        diff = float((served.gather(1, top).log() - ref.gather(1, top).log()).abs().max())
+        kind = "bf16+fold_bn+uint8" if fold else "bf16+uint8"
+        print(f"[imagenet serving] {name} {kind} vs f32 plain: argmax agreement {raw}, max |diff| "
+              f"of the f32 top-1 leaf log-prob {diff:.4g}"
+              + (f" (floor {IMNET_BF16_AGREE})" if fold
+                 else " (reported, not gated: bf16 rounding on random weights)"), flush=True)
+        if fold:
+            check(raw >= IMNET_BF16_AGREE, f"{name} folded bf16 serving fn: argmax agreement "
+                                           f"{raw} with the f32 plain path")
+            f32_fold = make_serving_fn(model, tree, bf16=False, fold_bn=True, uint8_input=True,
+                                       normalize=(IMAGENET_MEAN, IMAGENET_STD))(u8)
+            agree, ties, raw32 = argmax_agreement(f32_fold.log(), ref.log(), TOL)
+            diff32 = float((f32_fold.gather(1, top).log() - ref.gather(1, top).log()).abs().max())
+            print(f"[imagenet serving] {name} f32+fold_bn+uint8 vs f32 plain: argmax {agree} on "
+                  f"rows whose top-2 gap exceeds {TOL} ({ties} rows within it, raw {raw32}), max "
+                  f"|diff| of the top-1 leaf log-prob {diff32:.4g}", flush=True)
+            check(agree == 1.0, f"{name} f32 folded serving fn: argmax agreement {agree}")
+            rec["serving_f32_fold_bn_uint8_argmax_agreement"] = raw32
+            del f32_fold
+        rec.update({f"serving_{kind.replace('+', '_')}_argmax_agreement": raw,
+                    f"serving_{kind.replace('+', '_')}_ms_per_request":
+                    time_cuda(lambda: serve(u8), n=IMNET_TIMED, warmup=1),
+                    "seconds": time.perf_counter() - t0})
+        heads[name] = time_path_head(feats, fused._head,
+                                     f"{name} head B={batch} D={dim} C={IMNET_CLASSES}")
+        out[name] = rec
+        del model, fused, plain, serve, feats, u8, ref, served
+        torch.cuda.empty_cache()
+
+    # The CLI: the NBDT count equal to the plain rules' on the same seeded logits
+    t0 = time.perf_counter()
+    argv = ["--arch", "efficientnet_b7b", "--dataset", "Imagenet1000", "--synthetic", "--eval",
+            "--hierarchy", "induced-efficientnet_b7b", "--analysis", "SoftEmbeddedDecisionRules",
+            "--batch-size", str(IMNET_CLI_BATCH), "--no-progress", "--checkpoint-dir",
+            str(workdir)]
+    reset_launches()
+    acc, text = run_cli(argv)
+    torch.cuda.synchronize()
+    cli_launches = read_launches()
+    _, correct, total = nbdt_line(text, "NBDT-Soft")
+    _, testset = build_datasets(get_parser().parse_args(argv))
+    torch.manual_seed(0)  # the CLI's seed for its backbone
+    model = get_model("efficientnet_b7b", IMNET_CLASSES).to("cuda",
+                                                            memory_format=torch.channels_last)
+    step = make_eval_step(model, "cuda")
+    logits, labels = [], []
+    for x, y, v in DataLoader(testset, IMNET_CLI_BATCH, transform=testset.transform_val(),
+                              drop_last=False, pad_last=True):
+        logits.append(step(torch.as_tensor(x, device="cuda"))[torch.as_tensor(v)])
+        labels.append(torch.as_tensor(y)[torch.as_tensor(v)])
+    logits, labels = torch.cat(logits), torch.cat(labels).cuda()
+    rules = SoftAnalyzer(tree=trees["b7b"]).rules
+    hits = int((rules.forward(logits).argmax(1) == labels).sum())
+    check((correct, total) == (hits, len(labels)) and total == 2 * IMNET_CLI_BATCH,
+          f"CLI efficientnet_b7b: NBDT-Soft {correct}/{total}, the plain rules on the same "
+          f"logits {hits}/{len(labels)}")
+    check(cli_launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"CLI efficientnet_b7b eval launched kernels: {cli_launches}")
+    out["cli"] = {"arch": "efficientnet_b7b", "image": 224, "batch": IMNET_CLI_BATCH,
+                  "backbone_acc": acc, "nbdt_soft_correct": correct, "total": total,
+                  "launches": cli_launches, "seconds": time.perf_counter() - t0}
+    print(f"[imagenet] CLI efficientnet_b7b --synthetic Imagenet1000 224px --eval --analysis "
+          f"SoftEmbeddedDecisionRules at batch {IMNET_CLI_BATCH}: backbone {acc:.2f}%, NBDT-Soft "
+          f"{correct}/{total}, equal to the plain rules on the same seeded logits; "
+          f"{out['cli']['seconds']:.1f} s", flush=True)
+    del model, step, logits
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"paths": out, "heads": heads}
+
+
+def time_path_head(feats: torch.Tensor, hc: st.HeadConstants, label: str) -> dict:
+    """B1 on a path's own features and classifier (f32 W): the kernel, its
+    plain version and, as a yardstick for the classifier alone,
+    ``torch.addmm(b, feats, W)`` with TF32 off, each over PATH_W_SETS
+    rotating copies of W; the bound from these inputs."""
+    hcs = [hc] + [hc._replace(W=hc.W.clone()) for _ in range(PATH_W_SETS - 1)]
+    it = itertools.count()
+
+    def pick():
+        return hcs[next(it) % PATH_W_SETS]
+
+    def addmm():
+        h = pick()
+        return torch.addmm(h.b, feats, h.W)
+
+    B, D = feats.shape
+    t = {"ms": time_cuda(lambda: st.fused_soft_head(feats, pick(), want_aux=False)),
+         "plain_ms": time_cuda(lambda: st.soft_head_reference(feats, pick(), False)),
+         "addmm_ms": time_cuda(addmm), "bound": head_bound_ms(hc, B, D)}
+    plan = st.last_launch["plan"]
+    t["instance"] = plan.instance
+    print(f"[times] soft_head {label} on the path's features, W=float32 ({PATH_W_SETS} W "
+          f"copies, {plan.instance} instance, q={plan.q}, rows={plan.rows}, grid "
+          f"{st.last_launch['grid']}): kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+          f"addmm (classifier only) {t['addmm_ms']:.5f} ms, bound {t['bound'][0]:.5f} ms "
+          f"({t['bound'][1]})", flush=True)
+    return t
+
+
 def time_layernorm() -> dict:
     """B2 at the ViT-B shape (50,432 x 768), f32 and bf16: the kernel, its
     plain version and F.layer_norm on the same tensors. Two rotating inputs
@@ -1528,6 +1816,13 @@ def main() -> int:
     zero_shot = run_zero_shot_path(Path(__file__).resolve().parent / "build" / "chip_smoke_zs")
     zero_shot["seconds"] = time.perf_counter() - t0
     print(f"[zero-shot] the zero-shot path took {zero_shot['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    imagenet = run_imagenet_path(
+        {"b7b": Tree("Imagenet1000", hierarchy="induced-efficientnet_b7b"),
+         "resnet": trees["Imagenet1000"]},
+        Path(__file__).resolve().parent / "build" / "chip_smoke_imagenet")
+    imagenet["seconds"] = time.perf_counter() - t0
+    print(f"[imagenet] the ImageNet path took {imagenet['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -1566,6 +1861,9 @@ def main() -> int:
                                  **with_rates(wrn, WRN_BATCH)},
                      "train": wrn_train, "seconds": wrn_seconds},
         "zero_shot": zero_shot,
+        "imagenet": {**{name: with_rates(rec, rec["batch"])
+                        for name, rec in imagenet["paths"].items() if name != "cli"},
+                     "cli": imagenet["paths"]["cli"], "seconds": imagenet["seconds"]},
         "card": smi}}), flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1581,8 +1879,12 @@ def main() -> int:
                         f"{key}_{pre}bound_by": head[dt]["bound"][1]})
         return out
 
+    imnet = imagenet["paths"]
+    b7_head, r50_head = imagenet["heads"]["efficientnet_b7b"], imagenet["heads"]["resnet50"]
     head_launches = (resnet["launches"]["soft_head"] + vit["launches"]["soft_head"]
-                     + wrn["launches"]["soft_head"])
+                     + wrn["launches"]["soft_head"]
+                     + imnet["efficientnet_b7b"]["launches"]["soft_head"]
+                     + imnet["resnet50"]["launches"]["soft_head"])
     print(json.dumps({"kernels": [{
         "name": "soft_head",
         "route": "cuda",
@@ -1591,8 +1893,11 @@ def main() -> int:
         "launches": head_launches,
         "launches_by_path": {"resnet18": resnet["launches"]["soft_head"],
                              "vit_b16": vit["launches"]["soft_head"],
-                             "wrn28_10": wrn["launches"]["soft_head"]},
-        "max_abs_err": head_err,
+                             "wrn28_10": wrn["launches"]["soft_head"],
+                             "efficientnet_b7b": imnet["efficientnet_b7b"]["launches"]["soft_head"],
+                             "resnet50": imnet["resnet50"]["launches"]["soft_head"]},
+        "max_abs_err": max(head_err, imnet["efficientnet_b7b"]["soft_head_leaf_err"],
+                           imnet["resnet50"]["soft_head_leaf_err"]),
         "ms": head_resnet[f32]["ms"],
         "plain_ms": head_resnet[f32]["plain_ms"],
         "bound_ms": head_resnet[f32]["bound"][0],
@@ -1617,6 +1922,14 @@ def main() -> int:
         "cifar100_d2048_bf16_bound_ms": head_wide[bf16]["bound"][0],
         **head_fields("wrn_c100", head_w100),
         **head_fields("wrn_c200", head_w200),
+        # on the ImageNet paths' own features and classifiers (f32 W)
+        **{f"{key}_{field}": head[field] for key, head in (
+            ("b7b_d2560_c1000", b7_head), ("resnet50_d2048_c1000", r50_head))
+           for field in ("ms", "plain_ms")},
+        **{f"{key}_{field}": head["bound"][i] for key, head in (
+            ("b7b_d2560_c1000", b7_head), ("resnet50_d2048_c1000", r50_head))
+           for i, field in enumerate(("bound_ms", "bound_by"))},
+        "launches_on_imagenet_cli": imnet["cli"]["launches"]["soft_head"],
         "launches_on_training_path": train["launches"]["soft_head"],
         "launches_on_wrn_training_path": wrn_train["launches"]["soft_head"],
         "launches_on_zero_shot_path": zero_shot["launches"]["soft_head"],
@@ -1624,7 +1937,9 @@ def main() -> int:
                               "vit_b16": head_vit[f32]["instance"],
                               "cifar100_d2048": head_wide[f32]["instance"],
                               "wrn_c100": head_w100[f32]["instance"],
-                              "wrn_c200": head_w200[f32]["instance"]},
+                              "wrn_c200": head_w200[f32]["instance"],
+                              "b7b_d2560_c1000": b7_head["instance"],
+                              "resnet50_d2048_c1000": r50_head["instance"]},
         "classifier_addmm_ms": {  # yardstick for the classifier part only
             "resnet18": head_resnet[f32]["addmm_ms"], "resnet18_bf16": head_resnet[bf16]["addmm_ms"],
             "vit_b16": head_vit[f32]["addmm_ms"], "vit_b16_bf16": head_vit[bf16]["addmm_ms"],
@@ -1632,7 +1947,8 @@ def main() -> int:
             "cifar100_d2048_bf16": head_wide[bf16]["addmm_ms"],
             "wrn_c100": head_w100[f32]["addmm_ms"], "wrn_c100_bf16": head_w100[bf16]["addmm_ms"],
             "wrn_c200": head_w200[f32]["addmm_ms"],
-            "wrn_c200_bf16": head_w200[bf16]["addmm_ms"]},
+            "wrn_c200_bf16": head_w200[bf16]["addmm_ms"],
+            "b7b_d2560_c1000": b7_head["addmm_ms"], "resnet50_d2048_c1000": r50_head["addmm_ms"]},
     }, {
         "name": "layernorm",
         "route": "cuda",

@@ -28,8 +28,9 @@ from .build import (
 )
 from .digraph import Digraph, get_depth, get_leaves, get_roots, read_graph, write_graph
 
-# The JAX package's probe order, then torchvision's ViT classifier.
-CLASSIFIER_NAMES = ("linear", "fc", "classifier", "head", "output", "heads.head")
+# The JAX package's probe order, with pytorchcv's ``output.fc`` (EfficientNet)
+# after ``output`` as in MODEL_FC_KEYS, then torchvision's ViT classifier.
+CLASSIFIER_NAMES = ("linear", "fc", "classifier", "head", "output", "output.fc", "heads.head")
 
 # Final classifier weight keys of the reference's model zoos, in its order.
 MODEL_FC_KEYS = (

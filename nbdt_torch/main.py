@@ -13,6 +13,13 @@ accuracy of a trained backbone, as the reference evaluates it:
         --hierarchy induced-wrn28_10 --eval --checkpoint-path ckpt.pth \
         --analysis SoftEmbeddedDecisionRules
 
+EfficientNet-B7b on the Imagenet1000 induced tree (``BASELINE.json``
+config #4), at the dataset's 224px:
+
+    python -m nbdt_torch.main --dataset Imagenet1000 --arch efficientnet_b7b \
+        --hierarchy induced-efficientnet_b7b --eval --checkpoint-path ckpt.pth \
+        --analysis SoftEmbeddedDecisionRules
+
 Zero-shot: train without some classes, then score another dataset's test
 set in a superclass label space (WordNet offline through a mini-corpus):
 
@@ -115,8 +122,8 @@ def get_parser() -> argparse.ArgumentParser:
                         help="bf16 backbone (params, BatchNorm, losses and node decisions "
                              "stay f32)")
     parser.add_argument("--bn-impl", default="auto", choices=["auto", "f32", "bf16"],
-                        help="BatchNorm statistics dtype: auto and f32 take f32; bf16 is not "
-                             "ported yet (A3)")
+                        help="BatchNorm compute dtype (ResNet and WRN): f32, or bf16 (the "
+                             "stream dtype); auto takes bf16 at 64px and above")
     parser.add_argument("--mesh", action="store_true", help="not ported yet (A13)")
     parser.add_argument("--zero", action="store_true", help="not ported yet (A13)")
     parser.add_argument("--device-normalize", action="store_true",
@@ -146,11 +153,18 @@ def refuse_not_ported(args) -> None:
         raise SystemExit("error: --pretrained downloads a released checkpoint, and nbdt_torch "
                          "downloads nothing: pass the local file to --checkpoint-path "
                          "(downloads are ROADMAP A12)")
-    if args.bn_impl == "bf16":
-        raise SystemExit("error: --bn-impl bf16 is not ported to nbdt_torch yet (ROADMAP A3)")
     if args.checkpoint_backend == "orbax":
         raise SystemExit("error: --checkpoint-backend orbax is not ported to nbdt_torch yet "
                          "(ROADMAP A13)")
+
+
+def resolve_bn_impl(bn_impl: str, module, image: int) -> str:
+    """``--bn-impl auto`` -> bf16 for images of 64px and above on a backbone
+    with the knob (``bn_impl``: the ResNets and the WRN), else f32, as the
+    JAX CLI resolves it; an explicit f32 or bf16 passes through."""
+    if bn_impl != "auto":
+        return bn_impl
+    return "bf16" if image >= 64 and hasattr(module, "bn_impl") else "f32"
 
 
 def build_datasets(args):
@@ -241,8 +255,15 @@ def main(argv=None):
         install_mini_corpus(args.mini_corpus)
     trainset, testset = build_datasets(args)
     torch.manual_seed(0)
-    model = get_model(args.arch, len(trainset.classes),
-                      image_size=default_image_size(args.dataset))
+    image = default_image_size(args.dataset)
+    model = get_model(args.arch, len(trainset.classes), image_size=image)
+    args.bn_impl = resolve_bn_impl(args.bn_impl, model, image)
+    if args.bn_impl != "f32":
+        if not hasattr(model, "bn_impl"):
+            raise SystemExit(f"--bn-impl is only supported by the ResNet/WRN families, not "
+                             f"{args.arch}")
+        source, model = model, model.clone(bn_impl=args.bn_impl)
+        model.load_state_dict(source.state_dict())
     if args.checkpoint_path:
         model.load_state_dict(load_checkpoint(args.checkpoint_path), strict=True)
         Colors.green(f"==> Loaded pretrained weights for {args.arch}/{args.dataset} from "

@@ -1,4 +1,5 @@
-"""Flax variables -> the port's torch state dict (ResNet, WRN and ViT layouts).
+"""Flax variables -> the port's torch state dict (ResNet, WRN, EfficientNet
+and ViT layouts).
 
 The JAX package's variables arrive as nested dicts of numpy arrays
 (``params`` plus ``batch_stats``). The transposes are those of the JAX
@@ -6,9 +7,13 @@ package's converter: conv kernels HWIO -> OIHW, Dense kernels ``[D, C]`` ->
 ``weight [C, D]``, and for the ViT the per-head q/k/v kernels ``[D, H, hd]``
 packed into torchvision's ``in_proj_weight [3D, D]`` and the output kernel
 ``[H, hd, D]`` into ``out_proj.weight [D, D]``. The keys are the reference
-torch names (torchvision's for the ViT), the same set that
-``nbdt_tpu.models.convert.flax_to_torch_state_dict`` emits, but for the
-WRN: there the keys are pytorchcv's (``features.init_block.weight``,
+torch names, the same set that
+``nbdt_tpu.models.convert.flax_to_torch_state_dict`` emits: the reference's
+``shortcut.N``/``linear`` for the CIFAR ResNets (capitalised archs),
+torchvision's ``downsample.N``/``fc`` for its ImageNet ResNets (lowercase
+archs) and for the ViT, pytorchcv's for the EfficientNets (a depthwise
+kernel ``[kh, kw, 1, C]`` becomes ``[C, 1, kh, kw]`` by the same transpose),
+but for the WRN: there the keys are pytorchcv's (``features.init_block.weight``,
 ``...identity_conv.weight``), while the JAX package's exporter writes
 ``features.init_block.conv.weight`` and ``...identity_conv.conv.weight``.
 :func:`pytorchcv_wrn_keys` turns either grammar into pytorchcv's.
@@ -22,19 +27,23 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .efficientnet import BASE_STAGES, pytorchcv_units
+
 _BN_PARTS = (("scale", "params", "weight"), ("bias", "params", "bias"),
              ("mean", "batch_stats", "running_mean"),
              ("var", "batch_stats", "running_var"))
 
 
-def _torch_name(flax_name: str) -> str:
+def _torch_name(flax_name: str, torchvision: bool) -> str:
     """``layer2_1`` -> ``layer2.1``, ``shortcut_conv`` -> ``shortcut.0``,
-    ``shortcut_bn`` -> ``shortcut.1``; other names are unchanged."""
+    ``shortcut_bn`` -> ``shortcut.1`` (torchvision: ``downsample.0/.1``, and
+    ``linear`` -> ``fc``); other names are unchanged."""
     m = re.fullmatch(r"layer(\d+)_(\d+)", flax_name)
     if m:
         return f"layer{m.group(1)}.{m.group(2)}"
-    return {"shortcut_conv": "shortcut.0", "shortcut_bn": "shortcut.1"}.get(
-        flax_name, flax_name)
+    short, head = ("downsample", "fc") if torchvision else ("shortcut", "linear")
+    return {"shortcut_conv": f"{short}.0", "shortcut_bn": f"{short}.1",
+            "linear": head}.get(flax_name, flax_name)
 
 
 def _vit_state_dict(params) -> Dict[str, np.ndarray]:
@@ -114,32 +123,82 @@ def pytorchcv_wrn_keys(state_dict: dict) -> dict:
                    r"\1.weight", k): v for k, v in state_dict.items()}
 
 
+def _conv_bn(out, key: str, conv, bn, stat) -> None:
+    """A conv kernel (HWIO -> OIHW) and the BatchNorm after it, under
+    ``{key}.conv`` and ``{key}.bn``."""
+    out[f"{key}.conv.weight"] = np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1))
+    for flax_part, coll, torch_part in _BN_PARTS:
+        out[f"{key}.bn.{torch_part}"] = np.asarray((bn if coll == "params" else stat)[flax_part])
+
+
+def _efficientnet_state_dict(params, stats) -> Dict[str, np.ndarray]:
+    """pytorchcv EfficientNet keys from a JAX EfficientNet's variables, of
+    any variant (the ``stage{s}_block{b}`` entries give each base stage's
+    depth)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def block(key, p, s, conv, bn):
+        _conv_bn(out, key, p[conv], p[bn], s[bn])
+
+    block("features.init_block.conv", params, stats, "stem_conv", "stem_bn")
+    repeats = [sum(1 for k in params if k.startswith(f"stage{si + 1}_block"))
+               for si in range(len(BASE_STAGES))]
+    for si, bi, key in pytorchcv_units(repeats):
+        name = f"stage{si + 1}_block{bi + 1}"
+        p, s = params[name], stats[name]
+        if "expand_conv" in p:
+            block(f"{key}.conv1", p, s, "expand_conv", "expand_bn")
+            dw, pw = f"{key}.conv2", f"{key}.conv3"
+        else:
+            dw, pw = f"{key}.dw_conv", f"{key}.pw_conv"
+        block(dw, p, s, "dw_conv", "dw_bn")
+        for torch_name, flax_name in (("conv1", "reduce"), ("conv2", "expand")):
+            leaf = p["se"][flax_name]
+            out[f"{key}.se.{torch_name}.weight"] = np.transpose(
+                np.asarray(leaf["kernel"]), (3, 2, 0, 1))
+            out[f"{key}.se.{torch_name}.bias"] = np.asarray(leaf["bias"])
+        block(pw, p, s, "project_conv", "project_bn")
+    _conv_bn(out, "features.final_block", params["head_conv"], params["head_bn"],
+             stats["head_bn"])
+    _affine(out, "output.fc", params["output"])
+    return out
+
+
 def state_dict_from_flax(variables, arch: str) -> Dict[str, torch.Tensor]:
-    """Convert ``{"params": ..., "batch_stats": ...}`` of a JAX ResNet, WRN
-    or ViT into a state dict that the port's module of the same ``arch``
-    loads strictly. ``arch`` is ``ResNet*``, ``wrn28_10*`` or ``WRN`` (a WRN
-    of any depth and width), ``vit_b16``, ``vit_s16`` or ``ViT`` (a ViT of
-    any depth and width)."""
-    if arch in ("vit_b16", "vit_s16", "ViT"):
-        out = _vit_state_dict(variables["params"])
-        return {k: torch.tensor(v, dtype=torch.float32) for k, v in out.items()}
-    if arch == "WRN" or arch.startswith("wrn28_10"):
-        out = _wrn_state_dict(variables["params"], variables.get("batch_stats", {}))
-        return {k: torch.tensor(v, dtype=torch.float32) for k, v in out.items()}
-    if not arch.startswith("ResNet"):
-        raise NotImplementedError(
-            f"state_dict_from_flax handles the CIFAR ResNets, the WRNs and the ViTs, "
-            f"not {arch!r}")
+    """Convert ``{"params": ..., "batch_stats": ...}`` of a JAX ResNet, WRN,
+    EfficientNet or ViT into a state dict that the port's module of the same
+    ``arch`` loads strictly. ``arch`` is ``ResNet*`` (the reference's key
+    grammar) or ``resnet*``, ``resnext*``, ``wide_resnet*`` (torchvision's),
+    as the JAX exporter keys on the arch's case; ``wrn28_10*`` or ``WRN`` (a
+    WRN of any depth and width); ``efficientnet_*`` or ``EfficientNet`` (any
+    variant); ``vit_b16``, ``vit_s16`` or ``ViT`` (a ViT of any depth and
+    width)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    if arch in ("vit_b16", "vit_s16", "ViT"):
+        out = _vit_state_dict(params)
+    elif arch == "WRN" or arch.startswith("wrn28_10"):
+        out = _wrn_state_dict(params, stats)
+    elif arch == "EfficientNet" or arch.startswith("efficientnet_"):
+        out = _efficientnet_state_dict(params, stats)
+    elif arch.startswith(("ResNet", "resnet", "resnext", "wide_resnet")):
+        out = _resnet_state_dict(params, stats, torchvision=arch[:1].islower())
+    else:
+        raise NotImplementedError(
+            f"state_dict_from_flax handles ResNet*, resnet*, resnext*, wide_resnet*, "
+            f"wrn28_10*, WRN, efficientnet_*, EfficientNet, vit_b16, vit_s16 and ViT, "
+            f"not {arch!r}")
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in out.items()}
+
+
+def _resnet_state_dict(params, stats, torchvision: bool) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
 
     def walk(p, s, prefix):
         for name, leaf in p.items():
-            key = prefix + _torch_name(name)
+            key = prefix + _torch_name(name, torchvision)
             if name == "linear":
-                out[f"{key}.weight"] = np.asarray(leaf["kernel"]).T
-                out[f"{key}.bias"] = np.asarray(leaf["bias"])
+                _affine(out, key, leaf)
             elif "kernel" in leaf:  # conv
                 out[f"{key}.weight"] = np.transpose(np.asarray(leaf["kernel"]), (3, 2, 0, 1))
                 if "bias" in leaf:
@@ -152,4 +211,4 @@ def state_dict_from_flax(variables, arch: str) -> Dict[str, torch.Tensor]:
                 walk(leaf, s.get(name, {}), key + ".")
 
     walk(params, stats, "")
-    return {k: torch.tensor(v, dtype=torch.float32) for k, v in out.items()}
+    return out

@@ -1,4 +1,5 @@
-"""Inference-time BatchNorm folding for the ResNet family.
+"""Inference-time BatchNorm folding for the ResNet family (the CIFAR
+ResNets, torchvision's ImageNet ResNets, ResNeXts and wide ResNets).
 
 Counterpart of ``nbdt_tpu/models/fold.py``. At inference a BatchNorm is the
 per-channel affine ``y = x*s + t`` with ``s = gamma/sqrt(var+eps)`` and
@@ -19,7 +20,7 @@ from .resnet import ResNet
 
 def _bn_key_for(conv_key: str) -> str:
     """State-dict prefix of the BatchNorm that follows a conv."""
-    if conv_key.endswith("shortcut.0"):
+    if conv_key.endswith(("shortcut.0", "downsample.0")):
         return conv_key[: -len("0")] + "1"
     head, _, name = conv_key.rpartition(".")
     assert name.startswith("conv"), conv_key
@@ -36,8 +37,8 @@ def _fold_state_dict(module: ResNet) -> Dict[str, torch.Tensor]:
             s = sd[f"{bn}.weight"] / np.sqrt(sd[f"{bn}.running_var"] + eps)
             out[f"{name}.weight"] = sd[f"{name}.weight"] * s[:, None, None, None]
             out[f"{name}.bias"] = sd[f"{bn}.bias"] - sd[f"{bn}.running_mean"] * s
-    out["linear.weight"] = sd["linear.weight"]
-    out["linear.bias"] = sd["linear.bias"]
+    for part in ("weight", "bias"):
+        out[f"{module.head_name}.{part}"] = sd[f"{module.head_name}.{part}"]
     return {k: torch.from_numpy(v.astype(np.float32)) for k, v in out.items()}
 
 
@@ -51,5 +52,5 @@ def fold_batchnorm(module: ResNet) -> ResNet:
         )
     folded = module.clone(folded=True)
     folded.load_state_dict(_fold_state_dict(module))
-    device = module.linear.weight.device
+    device = module.conv1.weight.device
     return folded.to(device).eval()

@@ -17,6 +17,8 @@ The state dict carries pytorchcv's keys (``features.init_block.weight``,
 convs hold bf16 weights and compute in bf16, every BatchNorm normalizes in
 f32 (torch's momentum 0.1 and eps 1e-5, flax's 0.9 and 1e-5), and the
 pooled features are cast to f32 before the f32 ``output`` head.
+``bn_impl="bf16"`` runs each BatchNorm in the stream dtype, as the port's
+ResNet does.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import _conv, _norm
+from .resnet import _check_bn_impl, _conv, _norm
 
 __all__ = ("PreResBlock", "WRN", "wrn28_10", "wrn28_10_cifar10", "wrn28_10_cifar100",
            "model_urls")
@@ -45,13 +47,14 @@ class _PreConv(nn.Module):
     """pytorchcv's PreConvBlock: ``bn`` then ``conv``; forward returns the
     conv output and the pre-activation ``relu(bn(x))``."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int):
+    def __init__(self, in_channels: int, out_channels: int, stride: int, bn_f32: bool):
         super().__init__()
+        self.bn_f32 = bn_f32
         self.bn = nn.BatchNorm2d(in_channels)
         self.conv = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=False)
 
     def forward(self, x):
-        pre = F.relu(_norm(self.bn, x))
+        pre = F.relu(_norm(self.bn, x, self.bn_f32))
         return _conv(self.conv, pre), pre
 
 
@@ -60,10 +63,11 @@ class PreResBlock(nn.Module):
     resize (stride != 1 or a channel change) the shortcut is the 1x1
     ``identity_conv`` of the pre-activated input, else the raw input."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 bn_f32: bool = True):
         super().__init__()
-        self.body = nn.ModuleDict({"conv1": _PreConv(in_channels, out_channels, stride),
-                                   "conv2": _PreConv(out_channels, out_channels, 1)})
+        self.body = nn.ModuleDict({"conv1": _PreConv(in_channels, out_channels, stride, bn_f32),
+                                   "conv2": _PreConv(out_channels, out_channels, 1, bn_f32)})
         self.resize = stride != 1 or in_channels != out_channels
         if self.resize:
             self.identity_conv = nn.Conv2d(in_channels, out_channels, 1, stride, bias=False)
@@ -76,12 +80,13 @@ class PreResBlock(nn.Module):
 
 
 class _PostActiv(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, bn_f32: bool):
         super().__init__()
+        self.bn_f32 = bn_f32
         self.bn = nn.BatchNorm2d(channels)
 
     def forward(self, x):
-        return F.relu(_norm(self.bn, x))
+        return F.relu(_norm(self.bn, x, self.bn_f32))
 
 
 class WRN(nn.Module):
@@ -90,11 +95,13 @@ class WRN(nn.Module):
     pooled features."""
 
     def __init__(self, depth: int = 28, width: int = 10, num_classes: int = 10,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bn_impl: str = "f32"):
         super().__init__()
         if (depth - 4) % 6:
             raise ValueError(f"WRN depth must be 6n + 4, not {depth}")
         self.depth, self.width, self.num_classes, self.dtype = depth, width, num_classes, dtype
+        self.bn_impl = bn_impl
+        bn_f32 = _check_bn_impl(bn_impl)
         units = (depth - 4) // 6  # units a stage: 4 at depth 28
         self.features = nn.Module()
         self.features.init_block = nn.Conv2d(3, 16, 3, 1, 1, bias=False)
@@ -103,10 +110,11 @@ class WRN(nn.Module):
                                                 (1, 2, 2)), start=1):
             seq = nn.Sequential()
             for u in range(units):
-                seq.add_module(f"unit{u + 1}", PreResBlock(cin, w, stride if u == 0 else 1))
+                seq.add_module(f"unit{u + 1}",
+                               PreResBlock(cin, w, stride if u == 0 else 1, bn_f32))
                 cin = w
             self.features.add_module(f"stage{stage}", seq)
-        self.features.post_activ = _PostActiv(cin)
+        self.features.post_activ = _PostActiv(cin, bn_f32)
         self.output = nn.Linear(cin, num_classes)
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
@@ -123,11 +131,13 @@ class WRN(nn.Module):
             return out
         return self.output(out)
 
-    def clone(self, dtype: Optional[torch.dtype] = None) -> "WRN":
-        """A fresh module of the same architecture in another ``dtype``; the
-        caller loads its weights."""
+    def clone(self, dtype: Optional[torch.dtype] = None,
+              bn_impl: Optional[str] = None) -> "WRN":
+        """A fresh module of the same architecture in another ``dtype`` or
+        ``bn_impl``; the caller loads its weights."""
         return WRN(self.depth, self.width, self.num_classes,
-                   dtype=self.dtype if dtype is None else dtype)
+                   dtype=self.dtype if dtype is None else dtype,
+                   bn_impl=self.bn_impl if bn_impl is None else bn_impl)
 
 
 def wrn28_10(num_classes: int = 200, dtype=torch.float32) -> WRN:

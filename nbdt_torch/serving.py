@@ -27,12 +27,13 @@ def make_serving_fn(
     """Build ``x [B,H,W,3] -> leaf probability distribution [B, C]``, the raw
     product of path probabilities (unnormalized; argmax is the prediction).
 
-    ``module`` is a port backbone (ResNet, WRN or ViT) with ``dtype`` and
+    ``module`` is a port backbone (a CIFAR or torchvision ResNet, ResNeXt or
+    wide ResNet, a WRN, an EfficientNet or a ViT) with ``dtype`` and
     ``clone(dtype=...)``. ``bf16`` runs it with a bfloat16 stream; node
     decisions always compute in f32. ``fold_bn`` folds BatchNorm into the
-    conv weights first (ResNet family; anything else raises TypeError, as in
-    the JAX package). ``uint8_input`` accepts raw uint8 NHWC batches and
-    normalizes on the device; ``normalize`` is ``(mean, std)`` in [0,1]
+    conv weights first (the ResNet family; anything else, the EfficientNets
+    included, raises TypeError, as in the JAX package). ``uint8_input``
+    accepts raw uint8 NHWC batches and normalizes on the device; ``normalize`` is ``(mean, std)`` in [0,1]
     units, the CIFAR constants by default. As in the JAX package this calls
     the plain rules (``soft_forward``), not the fused head.
     """

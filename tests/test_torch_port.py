@@ -104,8 +104,8 @@ def tree_pair(name):
 
 
 def random_variables(variables, seed=0):
-    """Perturb a JAX ResNet's BatchNorm parameters and running statistics so
-    that folding and normalization are not near-identities."""
+    """Perturb a JAX backbone's BatchNorm parameters and running statistics
+    so that folding and normalization are not near-identities."""
     rng = np.random.RandomState(seed)
 
     def copy(tree):
@@ -120,8 +120,8 @@ def random_variables(variables, seed=0):
                 p[name]["bias"] = (0.1 * rng.randn(*c)).astype(np.float32)
                 s[name]["mean"] = (0.1 * rng.randn(*c)).astype(np.float32)
                 s[name]["var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
-            elif "kernel" not in p[name]:
-                walk(p[name], s[name])
+            elif "kernel" not in p[name]:  # a block (a squeeze-excite has no statistics)
+                walk(p[name], s.get(name, {}))
 
     out = copy(variables)
     walk(out["params"], out["batch_stats"])
@@ -158,6 +158,7 @@ def test_port_imports_nothing_of_jax():
         "import nbdt_torch.hierarchy.build, nbdt_torch.hierarchy.cluster\n"
         "import nbdt_torch.hierarchy.generate\n"
         "import nbdt_torch.models.wideresnet, nbdt_torch.data.imagenet, nbdt_torch.analysis\n"
+        "import nbdt_torch.models.efficientnet, nbdt_torch.models.resnet\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"

@@ -460,8 +460,7 @@ def test_main_trains_on_synthetic_data(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--pretrained"], "A12"), (["--mesh"], "A13"), (["--zero"], "A13"),
-    (["--profile", "out"], "A16"), (["--bn-impl", "bf16"], "A3"),
-    (["--checkpoint-backend", "orbax"], "A13")])
+    (["--profile", "out"], "A16"), (["--checkpoint-backend", "orbax"], "A13")])
 def test_main_refuses_flags_not_ported(flag, item):
     from nbdt_torch.main import main
 

@@ -276,9 +276,14 @@ def test_get_model_registry():
     assert vit.dtype == torch.bfloat16 and vit.ln_impl == "pallas"
     assert vit.encoder.pos_embedding.shape == (1, 5, 768)
     assert isinstance(tm.get_model("ResNet18", 10), tm.ResNet)
-    assert sorted(tm.MODEL_REGISTRY) == ["ResNet10", "ResNet18", "WRN", "vit_b16", "vit_s16",
-                                         "wrn28_10", "wrn28_10_cifar10", "wrn28_10_cifar100"]
+    resnets = ["ResNet10", "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
+               "resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
+               "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2"]
+    effnets = [f"efficientnet_b{i}{s}" for i in range(9) for s in ("", "b", "c")]
+    assert sorted(tm.MODEL_REGISTRY) == sorted(
+        resnets + effnets + ["WRN", "vit_b16", "vit_s16", "wrn28_10", "wrn28_10_cifar10",
+                             "wrn28_10_cifar100"])
     with pytest.raises(KeyError, match="unknown arch"):
-        tm.get_model("ResNet50", 10)  # the Bottleneck family: ROADMAP A3
+        tm.get_model("densenet121", 10)  # the rest of the zoo: ROADMAP A14
     with pytest.raises(ValueError, match="ln_impl"):
         tm.vit_s16(10, ln_impl="fast")
