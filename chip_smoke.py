@@ -21,7 +21,14 @@ the Superclass analyzers through a mini-corpus; the Trainer at 224px on 1000
 classes with 100 unseen), and the ImageNet path (EfficientNet-B7b at 600px,
 3 requests of 64, and resnet50 at 224px, 3 requests of 256, through the
 fused head on the Imagenet1000 induced trees at D=2560 and D=2048, C=1000;
-their bf16 serving fns; the CLI's ``--arch efficientnet_b7b --eval``). Builds every
+their bf16 serving fns; the CLI's ``--arch efficientnet_b7b --eval``), and the
+zoo path (MobileNetV2, DenseNet-121, AlexNet, GoogLeNet, MNASNet-1.0, VGG-16-BN
+with torchvision's head, ShuffleNetV2-x1.0 at 224px and Inception v3 at 299px,
+3 requests of 256 each through the fused head on the Imagenet1000 induced tree
+at D=1024, 1280, 2048 and 4096, C=1000, their classifiers found by the probe;
+SqueezeNet-1.1 through the plain rules, its fused head refused; each bf16
+serving fn; one forward of each of the zoo's 26 names; the CLI's ``--arch
+mobilenet_v2 --eval``). Builds every
 hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
 PyTorch version, checks each path's launch counts and outputs, and times the
 kernels and requests with CUDA events. Exits nonzero, printing no result,
@@ -33,7 +40,7 @@ Phases: device, build, the conv probe's inputs, kernel vs plain (soft_head,
 layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
 its f32 gate, its serving fn, the conv probe path (one request, then the
 probe's parity and timing phases), the training path, the WRN-28-10 serving
-and training path, the zero-shot path, the ImageNet path, times.
+and training path, the zero-shot path, the ImageNet path, the zoo path, times.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from nbdt_torch.analysis import SoftEmbeddedDecisionRules as SoftAnalyzer
 from nbdt_torch.data import DataLoader, LearnableSyntheticDataset, PrefetchLoader
 from nbdt_torch.data.transforms import CIFAR_MEAN, CIFAR_STD, IMAGENET_MEAN, IMAGENET_STD
 from nbdt_torch.hierarchy.digraph import Digraph
+from nbdt_torch.hierarchy.generate import find_classifier
 from nbdt_torch.main import main as train_cli
 from nbdt_torch.models import ResNet18, vit_b16, wrn28_10_cifar100
 from nbdt_torch.ops import _build
@@ -69,6 +77,7 @@ from nbdt_torch.ops import layernorm as ln
 from nbdt_torch.ops import soft_traversal as st
 from nbdt_torch.rules import to_device_tree
 from nbdt_torch.tools import probe_pallas_conv as probe
+from nbdt_torch.tools.count_work import PEAK_BYTES_PER_S, PEAK_F32_FLOPS, head_bound_ms
 from nbdt_torch.trainer import TrainConfig, Trainer, lr_schedule, make_optimizer, make_train_step
 from nbdt_torch.tree import Tree
 
@@ -82,11 +91,6 @@ VIT_LN_PER_REQUEST = 25  # 2 per block x 12 blocks + the final LayerNorm
 PROBE_PARITY_BATCH = 64  # tools/probe_pallas_conv.py's --parity-batch
 REQUESTS = 3
 TIMED = 20
-# Published H100 SXM peaks (at a 700 W power limit): HBM bytes/s, f32
-# (non-tensor-core) FLOP/s and bf16 tensor-core FLOP/s.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
 # W sets the head's timing rotates at the ViT shape: 17 f32 W of 3 MB are
 # more than the 50 MB L2, so W comes from HBM, as inside a request.
 HEAD_W_SETS = 17
@@ -183,6 +187,35 @@ PATH_W_SETS = 7
 # (off by 1.2e-4). A broken fold or normalize agrees on about one row in the
 # number of classes predicted (19 of those 32).
 IMNET_BF16_AGREE = 0.5
+# Zoo path (ROADMAP A14): the rest of torchvision's zoo at full width, f32
+# with TF32 off, weights seeded and calibrated as the ImageNet path's, on the
+# Imagenet1000 induced tree (C=1000): 3 requests of 256 each through
+# SoftNBDT(fused=True) at 224px (Inception v3 at its published 299px), so B1
+# runs at D=1024, 1280, 2048 and 4096; SqueezeNet-1.1, which has no pooled
+# features, through the plain rules. Then one forward of each of the zoo's
+# 26 names at batch 2 with its default init, and the CLI's --arch
+# mobilenet_v2 --eval at batch 32.
+ZOO_BATCH = 256
+# calibrate_classifier's floor on the zoo's feature deviations: with none, a
+# CPU run of these functions at their sizes (32 images) reached logits of
+# 1.5e5 on VGG-16-BN's classic head and 1.2e3 on AlexNet's (hidden units dead
+# on all 16 calibration images); at 0.1 the largest was 114 (Inception v3)
+ZOO_SD_FLOOR = 0.1
+ZOO_PATHS = (  # (arch, constructor keywords, image, pooled features)
+    ("mobilenet_v2", {}, 224, 1280),
+    ("densenet121", {}, 224, 1024),
+    ("alexnet", {}, 224, 4096),
+    ("googlenet", {}, 224, 1024),
+    ("mnasnet1_0", {}, 224, 1280),
+    ("vgg16_bn", {"classic_head": True}, 224, 4096),
+    ("shufflenet_v2_x1_0", {}, 224, 1024),
+    ("inception_v3", {}, 299, 2048),
+)
+ZOO_NAMES = ("mobilenet_v2", "densenet121", "densenet161", "densenet169", "densenet201",
+             "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn",
+             "alexnet", "googlenet", "inception_v3", "mnasnet0_5", "mnasnet0_75", "mnasnet1_0",
+             "mnasnet1_3", "squeezenet1_0", "squeezenet1_1", "shufflenet_v2_x0_5",
+             "shufflenet_v2_x1_0", "shufflenet_v2_x1_5", "shufflenet_v2_x2_0")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -355,25 +388,6 @@ def head_inputs(ta, batch: int, dim: int, seed: int):
     return torch.as_tensor(feats, device="cuda"), W, b
 
 
-def head_bound_ms(hc: st.HeadConstants, B: int, D: int) -> tuple:
-    """Least time for the head on an H100: every input read once and the
-    leaf output written once at HBM rate, vs its operations at their peaks:
-    the classifier at the f32 CUDA-core peak for an f32 W (TF32 is ruled
-    out) or the bf16 tensor-core peak for a bf16 W, the tree lists' f32
-    operations at the f32 peak."""
-    consts = (hc.W, hc.b, hc.slot_ptr, hc.slot_cls, hc.slot_w, hc.slot_valid,
-              hc.class_ptr, hc.class_slot)
-    nbytes = B * D * hc.W.element_size() + sum(t.numel() * t.element_size() for t in consts)
-    nbytes += B * hc.num_classes * 4
-    S = hc.num_nodes * hc.max_children
-    classifier = 2 * B * D * hc.num_classes
-    tree = B * (2 * hc.slot_cls.numel() + hc.class_slot.numel() + 4 * S)
-    peak = PEAK_F32_FLOPS if hc.W.dtype == torch.float32 else PEAK_BF16_FLOPS
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (classifier / peak + tree / PEAK_F32_FLOPS) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def ln_bound_ms(x: torch.Tensor) -> tuple:
     """Least time for the LayerNorm on an H100: x read once, y written once,
     weight and bias read once, vs its f32 operations (sum, centre, square-
@@ -397,17 +411,35 @@ def randomize_batchnorm(model: torch.nn.Module, gen: torch.Generator) -> None:
                 m.running_var.uniform_(0.5, 1.5, generator=gen)
 
 
-def calibrate_classifier(model, classifier, x: torch.Tensor, gen: torch.Generator) -> None:
+def calibrate_classifier(model, classifier, x: torch.Tensor, gen: torch.Generator,
+                         sd_floor: float = 0.0) -> None:
     """Seeded classifier over standardized features. Random weights map
     every image to nearly the same pooled features, so a plain random head
     predicts one class for all; centring and scaling by a calibration
-    batch's feature statistics spreads the logits like a trained head's."""
+    batch's feature statistics spreads the logits like a trained head's.
+    ``sd_floor`` adds that share of the mean standard deviation to each
+    feature's in quadrature (``hypot``, so 0 leaves them as they are): a
+    feature near constant over the calibration batch (a unit of a hidden
+    layer that no calibration image switches on) then gets no weight that
+    lifts the logits of other images to thousands. A 1x1 conv classifier
+    (SqueezeNet's, whose ReLU and mean over positions follow it) is centred
+    on the map it takes and each class's row scaled to unit spread over
+    images and positions, so that no class wins every image by the width of
+    its ReLU's input alone."""
     with torch.no_grad():
-        feats = model(x.permute(0, 3, 1, 2), features_only=True)
-        mu, sd = feats.mean(0), feats.std(0) + 1e-6
-        C, D = classifier.weight.shape
-        w = torch.randn(C, D, generator=gen).to(x.device) * (3.0 / math.sqrt(D)) / sd
-        classifier.weight.copy_(w)
+        C, D = classifier.weight.shape[:2]
+        w = torch.randn(C, D, generator=gen).to(x.device)
+        if isinstance(classifier, torch.nn.Conv2d):
+            fmap = model.features(x.permute(0, 3, 1, 2)).float()
+            feats = fmap.permute(0, 2, 3, 1).reshape(-1, D)
+            mu = feats.mean(0)
+            w = w / (((feats - mu) @ w.T).std(0) + 1e-6)[:, None]
+        else:
+            feats = model(x.permute(0, 3, 1, 2), features_only=True)
+            sd = feats.std(0)
+            mu, sd = feats.mean(0), torch.hypot(sd, sd_floor * sd.mean()) + 1e-6
+            w = w * (3.0 / math.sqrt(D)) / sd
+        classifier.weight.copy_(w.view_as(classifier.weight))
         classifier.bias.copy_(-(w @ mu))
 
 
@@ -1450,36 +1482,55 @@ def imagenet_normalize(u8: torch.Tensor) -> torch.Tensor:
     return (u8.float() / 255.0 - mean) / std
 
 
-def imagenet_model(ctor, img: int, seed: int):
+def he_init(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """Seeded He-normal weights (std sqrt(2 / fan-in)) and zero biases for
+    every conv and linear layer: a backbone without BatchNorm keeps its
+    activations' scale through ReLUs that way. Under the default init a
+    random SqueezeNet-1.1 maps every image to pooled features within 6e-8 of
+    each other (a CPU run at 224px: its biases swamp the shrinking signal),
+    so one class wins every image."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.weight.normal_(0.0, math.sqrt(2.0 / m.weight[0].numel()), generator=gen)
+                m.bias.zero_()
+
+
+def imagenet_model(ctor, img: int, seed: int, sd_floor: float = 0.0):
     """A backbone on Imagenet1000 with seeded random weights: BatchNorm
     affine drawn by ``randomize_batchnorm``, its statistics and the
     classifier calibrated on IMNET_CAL seeded images of the requests'
     distribution (a 55-block random network calibrated on other inputs
     amplifies the shift: in a CPU run of B7b at 224px, normal noise
     calibrated it and normalized uniform images then reached logits of 2e6),
-    on the card in eval mode."""
+    on the card in eval mode. The classifier is the one the probe finds
+    (``find_classifier``), calibrated with ``sd_floor``; a backbone without
+    BatchNorm gets ``he_init`` weights and only its classifier
+    calibrated."""
     torch.manual_seed(seed)
     gen = torch.Generator().manual_seed(seed + 1)
     model = ctor(IMNET_CLASSES)
     randomize_batchnorm(model, gen)
+    if not any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules()):
+        he_init(model, gen)
     model = model.to("cuda", memory_format=torch.channels_last)
     x = imagenet_normalize(imagenet_images(
         IMNET_CAL, img, torch.Generator(device="cuda").manual_seed(seed + 2)))
     calibrate_batchnorm(model, x)
-    classifier = model.output.fc if hasattr(model, "output") else model.fc
-    calibrate_classifier(model, classifier, x, gen)
+    calibrate_classifier(model, find_classifier(model)[1], x, gen, sd_floor)
     return model
 
 
 def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
-                   seed: int) -> dict:
+                   seed: int, tag: str = "[imagenet]") -> dict:
     """One ImageNet backbone's main path: REQUESTS requests of ``batch``
     normalized NHWC f32 images through SoftNBDT(fused=True) (one B1 launch each, counts
     set to 0 just before) against the plain rules, B1 held to its plain
     version on the path's own features (no less exact than it against f64,
     within TOL; argmax 1.0 on rows whose top-2 gap exceeds TOL), a decision
-    path, a profiler line and the request times. Returns the record and the
-    wrappers and inputs for the serving fn."""
+    path, a profiler line and the request times. Returns the record (with
+    the fewest classes a request predicted) and the wrappers and features
+    for the serving fn and B1's timing."""
     cgen = torch.Generator(device="cuda").manual_seed(seed)
     fused = SoftNBDT("Imagenet1000", model, tree=tree, fused=True)
     plain = SoftNBDT("Imagenet1000", model, tree=tree)
@@ -1491,6 +1542,7 @@ def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
     launches = read_launches()
     check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0},
           f"{name} path launches {launches} over {REQUESTS} requests")
+    predicted = min(int(out.argmax(1).unique().numel()) for out in outs)
     for i, (x, out) in enumerate(zip(requests, outs)):
         ref = plain(x)
         check(out.shape == (batch, IMNET_CLASSES) and bool(torch.isfinite(out).all()),
@@ -1499,12 +1551,12 @@ def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
         check(dev < 1e-4, f"{name} request {i}: leaf probs sum to 1 only within {dev:.3g}")
         agree, ties, raw = argmax_agreement(out.log(), ref.log(), TOL)
         check(agree == 1.0, f"{name} request {i}: fused vs plain argmax agreement {agree}")
-        print(f"[imagenet] {name} request {i}: fused vs plain argmax {agree} ({ties} tie rows, "
+        print(f"{tag} {name} request {i}: fused vs plain argmax {agree} ({ties} tie rows, "
               f"raw {raw}), max |prob diff| {float((out - ref).abs().max()):.3g}, max |sum - 1| "
               f"{dev:.3g}, {int(out.argmax(1).unique().numel())} of {IMNET_CLASSES} classes "
               "predicted", flush=True)
     del outs, ref
-    print(f"[imagenet] {name} launches over {REQUESTS} requests: {json.dumps(launches)}; "
+    print(f"{tag} {name} launches over {REQUESTS} requests: {json.dumps(launches)}; "
           f"soft_head {st.last_launch['plan']}, grid {st.last_launch['grid']}", flush=True)
     with torch.no_grad():
         feats = fused.model(requests[0].permute(0, 3, 1, 2), features_only=True)
@@ -1512,21 +1564,101 @@ def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
           f"{name} features {tuple(feats.shape)} {feats.dtype}")
     head_err = gate_soft_head(feats, fused._head, True,
                               f"soft_head on {name} request 0 features B={batch} D={dim} "
-                              f"C={IMNET_CLASSES}", "[imagenet]", exact=True)
+                              f"C={IMNET_CLASSES}", tag, exact=True)
     _, decisions = plain.forward_with_decisions(requests[0][:2])
     path = " -> ".join(f"{s['name']} ({s['prob']:.3f})" for s in decisions[0])
-    print(f"[imagenet] {name} decision path of image 0 ({len(decisions[0])} steps): {path}",
+    print(f"{tag} {name} decision path of image 0 ({len(decisions[0])} steps): {path}",
           flush=True)
     x = requests[0]
     print_profile(f"{name} fused f32 request of {batch} at {img}px",
                   *profile_ms(lambda: fused(x), n=2))
     rec = {"batch": batch, "image": img, "features": dim, "classes": IMNET_CLASSES,
            "requests": REQUESTS, "requests_timed": IMNET_TIMED, "launches": launches,
-           "soft_head_leaf_err": head_err,
+           "soft_head_leaf_err": head_err, "classes_predicted": predicted,
            "fused_ms_per_request": time_cuda(lambda: fused(x), n=IMNET_TIMED, warmup=1),
            "fused_wall_ms_per_request": wall_ms(lambda: fused(x), n=IMNET_TIMED, warmup=1),
            "plain_ms_per_request": time_cuda(lambda: plain(x), n=IMNET_TIMED, warmup=1)}
     return rec, fused, plain, feats
+
+
+def serve_bf16(name: str, model, tree: Tree, plain, batch: int, img: int, seed: int,
+               fold_bn: bool, tag: str) -> tuple:
+    """``make_serving_fn(bf16=True, uint8_input=True)`` with ImageNet's
+    normalization (and ``fold_bn``) on seeded uint8 images: finite leaf
+    probabilities that sum to 1, its argmax agreement with the f32 plain
+    path (reported here; the caller gates it where it may) and its time.
+    Returns the record, the images, the f32 plain path's output on them and
+    its top-1 indices."""
+    u8 = imagenet_images(batch, img, torch.Generator(device="cuda").manual_seed(seed))
+    ref = plain(imagenet_normalize(u8))
+    serve = make_serving_fn(model, tree, bf16=True, fold_bn=fold_bn, uint8_input=True,
+                            normalize=(IMAGENET_MEAN, IMAGENET_STD))
+    served = serve(u8)
+    check(served.shape == (batch, IMNET_CLASSES) and bool(torch.isfinite(served).all()),
+          f"{name} serving fn: bad output")
+    dev = float((served.sum(1) - 1).abs().max())
+    check(dev < 1e-4, f"{name} serving fn: leaf probs sum to 1 only within {dev:.3g}")
+    top = ref.argmax(1, keepdim=True)
+    raw = float((served.argmax(1) == ref.argmax(1)).float().mean())
+    diff = float((served.gather(1, top).log() - ref.gather(1, top).log()).abs().max())
+    kind = "bf16+fold_bn+uint8" if fold_bn else "bf16+uint8"
+    print(f"{tag} {name} {kind} vs f32 plain: argmax agreement {raw}, max |diff| "
+          f"of the f32 top-1 leaf log-prob {diff:.4g}"
+          + (f" (floor {IMNET_BF16_AGREE})" if fold_bn
+             else " (reported, not gated: bf16 rounding on random weights)"), flush=True)
+    key = f"serving_{kind.replace('+', '_')}"
+    rec = {f"{key}_argmax_agreement": raw,
+           f"{key}_ms_per_request": time_cuda(lambda: serve(u8), n=IMNET_TIMED, warmup=1)}
+    return rec, u8, ref, top
+
+
+def check_cli_eval(arch: str, hierarchy: str, tree: Tree, workdir: Path, tag: str) -> dict:
+    """The CLI's ``--arch ARCH --dataset Imagenet1000 --synthetic --eval
+    --hierarchy HIERARCHY --analysis SoftEmbeddedDecisionRules`` at 224px,
+    batch IMNET_CLI_BATCH: its NBDT-Soft count equal to the plain rules' on
+    ``tree`` over the logits of the same seeded backbone, and no kernel
+    launch."""
+    from nbdt_torch.main import build_datasets, get_parser
+    from nbdt_torch.models import get_model
+    from nbdt_torch.trainer import make_eval_step
+
+    t0 = time.perf_counter()
+    argv = ["--arch", arch, "--dataset", "Imagenet1000", "--synthetic", "--eval",
+            "--hierarchy", hierarchy, "--analysis", "SoftEmbeddedDecisionRules",
+            "--batch-size", str(IMNET_CLI_BATCH), "--no-progress", "--checkpoint-dir",
+            str(workdir)]
+    reset_launches()
+    acc, text = run_cli(argv)
+    torch.cuda.synchronize()
+    cli_launches = read_launches()
+    _, correct, total = nbdt_line(text, "NBDT-Soft")
+    _, testset = build_datasets(get_parser().parse_args(argv))
+    torch.manual_seed(0)  # the CLI's seed for its backbone
+    model = get_model(arch, IMNET_CLASSES).to("cuda", memory_format=torch.channels_last)
+    step = make_eval_step(model, "cuda")
+    logits, labels = [], []
+    for x, y, v in DataLoader(testset, IMNET_CLI_BATCH, transform=testset.transform_val(),
+                              drop_last=False, pad_last=True):
+        logits.append(step(torch.as_tensor(x, device="cuda"))[torch.as_tensor(v)])
+        labels.append(torch.as_tensor(y)[torch.as_tensor(v)])
+    logits, labels = torch.cat(logits), torch.cat(labels).cuda()
+    rules = SoftAnalyzer(tree=tree).rules
+    hits = int((rules.forward(logits).argmax(1) == labels).sum())
+    check((correct, total) == (hits, len(labels)) and total == 2 * IMNET_CLI_BATCH,
+          f"CLI {arch}: NBDT-Soft {correct}/{total}, the plain rules on the same "
+          f"logits {hits}/{len(labels)}")
+    check(cli_launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"CLI {arch} eval launched kernels: {cli_launches}")
+    rec = {"arch": arch, "image": 224, "batch": IMNET_CLI_BATCH, "backbone_acc": acc,
+           "nbdt_soft_correct": correct, "total": total, "launches": cli_launches,
+           "seconds": time.perf_counter() - t0}
+    print(f"{tag} CLI {arch} --synthetic Imagenet1000 224px --eval --hierarchy {hierarchy} "
+          f"--analysis SoftEmbeddedDecisionRules at batch {IMNET_CLI_BATCH}: backbone "
+          f"{acc:.2f}%, NBDT-Soft {correct}/{total}, equal to the plain rules on the same seeded "
+          f"logits; {rec['seconds']:.1f} s", flush=True)
+    del model, step, logits
+    shutil.rmtree(workdir, ignore_errors=True)
+    return rec
 
 
 def run_imagenet_path(trees: dict, workdir: Path) -> dict:
@@ -1541,9 +1673,7 @@ def run_imagenet_path(trees: dict, workdir: Path) -> dict:
     SoftEmbeddedDecisionRules`` at 224px, its NBDT count equal to the plain
     rules' on the logits of the same seeded backbone. Returns the records
     and B1's timings on each path's head."""
-    from nbdt_torch.main import build_datasets, get_parser
-    from nbdt_torch.models import efficientnet_b7b, get_model, resnet50
-    from nbdt_torch.trainer import make_eval_step
+    from nbdt_torch.models import efficientnet_b7b, resnet50
 
     out, heads = {}, {}
     for name, ctor, tree, batch, img, dim, seed in (
@@ -1552,25 +1682,11 @@ def run_imagenet_path(trees: dict, workdir: Path) -> dict:
         t0 = time.perf_counter()
         model = imagenet_model(ctor, img, seed)
         rec, fused, plain, feats = serve_imagenet(name, model, tree, batch, img, dim, seed + 3)
-        u8 = imagenet_images(batch, img, torch.Generator(device="cuda").manual_seed(seed + 4))
-        ref = plain(imagenet_normalize(u8))
         fold = name == "resnet50"
-        serve = make_serving_fn(model, tree, bf16=True, fold_bn=fold, uint8_input=True,
-                                normalize=(IMAGENET_MEAN, IMAGENET_STD))
-        served = serve(u8)
-        check(served.shape == (batch, IMNET_CLASSES) and bool(torch.isfinite(served).all()),
-              f"{name} serving fn: bad output")
-        dev = float((served.sum(1) - 1).abs().max())
-        check(dev < 1e-4, f"{name} serving fn: leaf probs sum to 1 only within {dev:.3g}")
-        top = ref.argmax(1, keepdim=True)
-        raw = float((served.argmax(1) == ref.argmax(1)).float().mean())
-        diff = float((served.gather(1, top).log() - ref.gather(1, top).log()).abs().max())
-        kind = "bf16+fold_bn+uint8" if fold else "bf16+uint8"
-        print(f"[imagenet serving] {name} {kind} vs f32 plain: argmax agreement {raw}, max |diff| "
-              f"of the f32 top-1 leaf log-prob {diff:.4g}"
-              + (f" (floor {IMNET_BF16_AGREE})" if fold
-                 else " (reported, not gated: bf16 rounding on random weights)"), flush=True)
+        srv, u8, ref, top = serve_bf16(name, model, tree, plain, batch, img, seed + 4, fold,
+                                       "[imagenet serving]")
         if fold:
+            raw = srv["serving_bf16_fold_bn_uint8_argmax_agreement"]
             check(raw >= IMNET_BF16_AGREE, f"{name} folded bf16 serving fn: argmax agreement "
                                            f"{raw} with the f32 plain path")
             f32_fold = make_serving_fn(model, tree, bf16=False, fold_bn=True, uint8_input=True,
@@ -1583,55 +1699,140 @@ def run_imagenet_path(trees: dict, workdir: Path) -> dict:
             check(agree == 1.0, f"{name} f32 folded serving fn: argmax agreement {agree}")
             rec["serving_f32_fold_bn_uint8_argmax_agreement"] = raw32
             del f32_fold
-        rec.update({f"serving_{kind.replace('+', '_')}_argmax_agreement": raw,
-                    f"serving_{kind.replace('+', '_')}_ms_per_request":
-                    time_cuda(lambda: serve(u8), n=IMNET_TIMED, warmup=1),
-                    "seconds": time.perf_counter() - t0})
+        rec.update({**srv, "seconds": time.perf_counter() - t0})
         heads[name] = time_path_head(feats, fused._head,
                                      f"{name} head B={batch} D={dim} C={IMNET_CLASSES}")
         out[name] = rec
-        del model, fused, plain, serve, feats, u8, ref, served
+        del model, fused, plain, feats, u8, ref
         torch.cuda.empty_cache()
 
     # The CLI: the NBDT count equal to the plain rules' on the same seeded logits
-    t0 = time.perf_counter()
-    argv = ["--arch", "efficientnet_b7b", "--dataset", "Imagenet1000", "--synthetic", "--eval",
-            "--hierarchy", "induced-efficientnet_b7b", "--analysis", "SoftEmbeddedDecisionRules",
-            "--batch-size", str(IMNET_CLI_BATCH), "--no-progress", "--checkpoint-dir",
-            str(workdir)]
-    reset_launches()
-    acc, text = run_cli(argv)
-    torch.cuda.synchronize()
-    cli_launches = read_launches()
-    _, correct, total = nbdt_line(text, "NBDT-Soft")
-    _, testset = build_datasets(get_parser().parse_args(argv))
-    torch.manual_seed(0)  # the CLI's seed for its backbone
-    model = get_model("efficientnet_b7b", IMNET_CLASSES).to("cuda",
-                                                            memory_format=torch.channels_last)
-    step = make_eval_step(model, "cuda")
-    logits, labels = [], []
-    for x, y, v in DataLoader(testset, IMNET_CLI_BATCH, transform=testset.transform_val(),
-                              drop_last=False, pad_last=True):
-        logits.append(step(torch.as_tensor(x, device="cuda"))[torch.as_tensor(v)])
-        labels.append(torch.as_tensor(y)[torch.as_tensor(v)])
-    logits, labels = torch.cat(logits), torch.cat(labels).cuda()
-    rules = SoftAnalyzer(tree=trees["b7b"]).rules
-    hits = int((rules.forward(logits).argmax(1) == labels).sum())
-    check((correct, total) == (hits, len(labels)) and total == 2 * IMNET_CLI_BATCH,
-          f"CLI efficientnet_b7b: NBDT-Soft {correct}/{total}, the plain rules on the same "
-          f"logits {hits}/{len(labels)}")
-    check(cli_launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
-          f"CLI efficientnet_b7b eval launched kernels: {cli_launches}")
-    out["cli"] = {"arch": "efficientnet_b7b", "image": 224, "batch": IMNET_CLI_BATCH,
-                  "backbone_acc": acc, "nbdt_soft_correct": correct, "total": total,
-                  "launches": cli_launches, "seconds": time.perf_counter() - t0}
-    print(f"[imagenet] CLI efficientnet_b7b --synthetic Imagenet1000 224px --eval --analysis "
-          f"SoftEmbeddedDecisionRules at batch {IMNET_CLI_BATCH}: backbone {acc:.2f}%, NBDT-Soft "
-          f"{correct}/{total}, equal to the plain rules on the same seeded logits; "
-          f"{out['cli']['seconds']:.1f} s", flush=True)
-    del model, step, logits
-    shutil.rmtree(workdir, ignore_errors=True)
+    out["cli"] = check_cli_eval("efficientnet_b7b", "induced-efficientnet_b7b", trees["b7b"],
+                                workdir, "[imagenet]")
     return {"paths": out, "heads": heads}
+
+
+def run_zoo_path(tree: Tree, workdir: Path) -> dict:
+    """The zoo path (ROADMAP A14), f32 with TF32 off, seeded random weights
+    (``imagenet_model``: BatchNorm statistics and the classifier the probe
+    finds calibrated), on the Imagenet1000 induced tree: each of ZOO_PATHS,
+    3 requests of 256 through SoftNBDT(fused=True) against the plain rules,
+    B1 on its own features (``serve_imagenet``), more than one class
+    predicted, its bf16 + uint8 serving fn (reported) and B1's time on its
+    head; SqueezeNet-1.1, 3 requests of 256 through the plain rules with no
+    launch, its fused wrapper raising NotImplementedError; one forward of
+    each of ZOO_NAMES at batch 2 (Inception v3 at 299px, the rest at 224px):
+    finite logits [2, 1000]; then the CLI's ``--arch mobilenet_v2 --eval``,
+    its NBDT count equal to the plain rules'. Returns the records and B1's
+    timings on each head."""
+    from nbdt_torch.models import get_model
+
+    out, heads = {}, {}
+    for i, (arch, kw, img, dim) in enumerate(ZOO_PATHS):
+        t0 = time.perf_counter()
+        seed = 100 + 10 * i
+        model = imagenet_model(lambda n: get_model(arch, n, **kw), img, seed, ZOO_SD_FLOOR)
+        rec, fused, plain, feats = serve_imagenet(arch, model, tree, ZOO_BATCH, img, dim,
+                                                  seed + 3, "[zoo]")
+        check(rec["classes_predicted"] > 1, f"{arch}: one class predicted for every image")
+        srv, u8, ref, _ = serve_bf16(arch, model, tree, plain, ZOO_BATCH, img, seed + 4, False,
+                                     "[zoo serving]")
+        rec.update({**kw, **srv, "seconds": time.perf_counter() - t0})
+        heads[arch] = time_path_head(feats, fused._head,
+                                     f"{arch} head B={ZOO_BATCH} D={dim} C={IMNET_CLASSES}")
+        out[arch] = rec
+        print(f"[zoo] {arch} at {img}px: fused {rec['fused_ms_per_request']:.3f} ms a request "
+              f"(host clock {rec['fused_wall_ms_per_request']:.3f}), plain "
+              f"{rec['plain_ms_per_request']:.3f}, bf16 + uint8 serving "
+              f"{srv['serving_bf16_uint8_ms_per_request']:.3f}; {rec['seconds']:.1f} s",
+              flush=True)
+        del model, fused, plain, feats, u8, ref
+        torch.cuda.empty_cache()
+    out["squeezenet1_1"] = run_squeezenet(tree)
+    out["every_name"] = forward_every_name()
+    out["cli"] = check_cli_eval("mobilenet_v2", "induced", tree, workdir, "[zoo]")
+    return {"paths": out, "heads": heads}
+
+
+def run_squeezenet(tree: Tree) -> dict:
+    """SqueezeNet-1.1 at 224px: 3 requests of 256 through the plain rules
+    (no kernel launch), finite leaf probabilities summing to 1 over more
+    than one predicted class; SoftNBDT(fused=True) raises
+    NotImplementedError (its logits are no linear function of pooled
+    features); its bf16 + uint8 serving fn, reported."""
+    from nbdt_torch.models import squeezenet1_1
+
+    t0, name, seed = time.perf_counter(), "squeezenet1_1", 190
+    model = imagenet_model(squeezenet1_1, 224, seed, ZOO_SD_FLOOR)
+    plain = SoftNBDT("Imagenet1000", model, tree=tree)
+    cgen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    requests = [imagenet_normalize(imagenet_images(ZOO_BATCH, 224, cgen))
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = [plain(x) for x in requests]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"{name} plain path launched kernels: {launches}")
+    for i, o in enumerate(outs):
+        check(o.shape == (ZOO_BATCH, IMNET_CLASSES) and bool(torch.isfinite(o).all()),
+              f"{name} request {i}: bad output")
+        dev = float((o.sum(1) - 1).abs().max())
+        check(dev < 1e-4, f"{name} request {i}: leaf probs sum to 1 only within {dev:.3g}")
+    predicted = min(int(o.argmax(1).unique().numel()) for o in outs)
+    check(predicted > 1, f"{name}: one class predicted for every image")
+    fused = SoftNBDT("Imagenet1000", model, tree=tree, fused=True)
+    try:
+        fused(requests[0])
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    check(refused is not None, f"{name}: SoftNBDT(fused=True) served without pooled features")
+    x = requests[0]
+    print_profile(f"{name} plain f32 request of {ZOO_BATCH} at 224px",
+                  *profile_ms(lambda: plain(x), n=2))
+    rec = {"batch": ZOO_BATCH, "image": 224, "classes": IMNET_CLASSES, "requests": REQUESTS,
+           "launches": launches, "classes_predicted": predicted, "fused_refused": refused,
+           "plain_ms_per_request": time_cuda(lambda: plain(x), n=IMNET_TIMED, warmup=1),
+           "plain_wall_ms_per_request": wall_ms(lambda: plain(x), n=IMNET_TIMED, warmup=1)}
+    srv, *_ = serve_bf16(name, model, tree, plain, ZOO_BATCH, 224, seed + 4, False,
+                         "[zoo serving]")
+    rec.update({**srv, "seconds": time.perf_counter() - t0})
+    print(f"[zoo] {name} plain rules at 224px: {rec['plain_ms_per_request']:.3f} ms a request "
+          f"(host clock {rec['plain_wall_ms_per_request']:.3f}), 0 launches, {predicted} classes "
+          f"predicted at least; SoftNBDT(fused=True) refused: NotImplementedError; "
+          f"{rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+def forward_every_name() -> dict:
+    """Each of the zoo's 26 names built on the card with its default init
+    (seeded) and run once in eval mode at batch 2: finite logits [2, 1000].
+    Returns the image size and seconds of each."""
+    from nbdt_torch.models import get_model
+
+    t0, out = time.perf_counter(), {}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for i, arch in enumerate(ZOO_NAMES):
+        img = 299 if arch == "inception_v3" else 224
+        t1 = time.perf_counter()
+        torch.manual_seed(200 + i)
+        with torch.device("cuda"):
+            model = get_model(arch, IMNET_CLASSES)
+        model = model.to(memory_format=torch.channels_last).eval()
+        x = imagenet_normalize(imagenet_images(2, img, g))
+        with torch.no_grad():
+            logits = model(x.permute(0, 3, 1, 2))
+        torch.cuda.synchronize()
+        check(logits.shape == (2, IMNET_CLASSES) and bool(torch.isfinite(logits).all()),
+              f"{arch}: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+        out[arch] = {"image": img, "seconds": time.perf_counter() - t1}
+        del model
+    torch.cuda.empty_cache()
+    print(f"[zoo] each of the {len(ZOO_NAMES)} names built on the card and ran a batch of 2: "
+          f"finite logits [2, {IMNET_CLASSES}]; {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def time_path_head(feats: torch.Tensor, hc: st.HeadConstants, label: str) -> dict:
@@ -1823,6 +2024,11 @@ def main() -> int:
         Path(__file__).resolve().parent / "build" / "chip_smoke_imagenet")
     imagenet["seconds"] = time.perf_counter() - t0
     print(f"[imagenet] the ImageNet path took {imagenet['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    zoo = run_zoo_path(trees["Imagenet1000"],
+                       Path(__file__).resolve().parent / "build" / "chip_smoke_zoo")
+    zoo["seconds"] = time.perf_counter() - t0
+    print(f"[zoo] the zoo path took {zoo['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -1864,6 +2070,10 @@ def main() -> int:
         "imagenet": {**{name: with_rates(rec, rec["batch"])
                         for name, rec in imagenet["paths"].items() if name != "cli"},
                      "cli": imagenet["paths"]["cli"], "seconds": imagenet["seconds"]},
+        "zoo": {**{name: with_rates(rec, rec["batch"]) for name, rec in zoo["paths"].items()
+                   if name not in ("cli", "every_name")},
+                "every_name": zoo["paths"]["every_name"], "cli": zoo["paths"]["cli"],
+                "seconds": zoo["seconds"]},
         "card": smi}}), flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1881,10 +2091,14 @@ def main() -> int:
 
     imnet = imagenet["paths"]
     b7_head, r50_head = imagenet["heads"]["efficientnet_b7b"], imagenet["heads"]["resnet50"]
+    zoo_launches = {arch: zoo["paths"][arch]["launches"]["soft_head"] for arch, *_ in ZOO_PATHS}
+    # B1 on each zoo path's head, keyed by arch and shape
+    zoo_heads = {f"{arch}_d{dim}_c{IMNET_CLASSES}": zoo["heads"][arch]
+                 for arch, _, _, dim in ZOO_PATHS}
     head_launches = (resnet["launches"]["soft_head"] + vit["launches"]["soft_head"]
                      + wrn["launches"]["soft_head"]
                      + imnet["efficientnet_b7b"]["launches"]["soft_head"]
-                     + imnet["resnet50"]["launches"]["soft_head"])
+                     + imnet["resnet50"]["launches"]["soft_head"] + sum(zoo_launches.values()))
     print(json.dumps({"kernels": [{
         "name": "soft_head",
         "route": "cuda",
@@ -1895,9 +2109,13 @@ def main() -> int:
                              "vit_b16": vit["launches"]["soft_head"],
                              "wrn28_10": wrn["launches"]["soft_head"],
                              "efficientnet_b7b": imnet["efficientnet_b7b"]["launches"]["soft_head"],
-                             "resnet50": imnet["resnet50"]["launches"]["soft_head"]},
+                             "resnet50": imnet["resnet50"]["launches"]["soft_head"],
+                             "zoo": zoo_launches,
+                             "squeezenet1_1":
+                             zoo["paths"]["squeezenet1_1"]["launches"]["soft_head"]},
         "max_abs_err": max(head_err, imnet["efficientnet_b7b"]["soft_head_leaf_err"],
-                           imnet["resnet50"]["soft_head_leaf_err"]),
+                           imnet["resnet50"]["soft_head_leaf_err"],
+                           *(zoo["paths"][arch]["soft_head_leaf_err"] for arch in zoo_launches)),
         "ms": head_resnet[f32]["ms"],
         "plain_ms": head_resnet[f32]["plain_ms"],
         "bound_ms": head_resnet[f32]["bound"][0],
@@ -1929,6 +2147,12 @@ def main() -> int:
         **{f"{key}_{field}": head["bound"][i] for key, head in (
             ("b7b_d2560_c1000", b7_head), ("resnet50_d2048_c1000", r50_head))
            for i, field in enumerate(("bound_ms", "bound_by"))},
+        # on the zoo paths' own features and classifiers (f32 W)
+        **{f"{key}_{field}": head[field] for key, head in zoo_heads.items()
+           for field in ("ms", "plain_ms")},
+        **{f"{key}_{field}": head["bound"][i] for key, head in zoo_heads.items()
+           for i, field in enumerate(("bound_ms", "bound_by"))},
+        "launches_on_zoo_cli": zoo["paths"]["cli"]["launches"]["soft_head"],
         "launches_on_imagenet_cli": imnet["cli"]["launches"]["soft_head"],
         "launches_on_training_path": train["launches"]["soft_head"],
         "launches_on_wrn_training_path": wrn_train["launches"]["soft_head"],
@@ -1939,7 +2163,8 @@ def main() -> int:
                               "wrn_c100": head_w100[f32]["instance"],
                               "wrn_c200": head_w200[f32]["instance"],
                               "b7b_d2560_c1000": b7_head["instance"],
-                              "resnet50_d2048_c1000": r50_head["instance"]},
+                              "resnet50_d2048_c1000": r50_head["instance"],
+                              **{key: head["instance"] for key, head in zoo_heads.items()}},
         "classifier_addmm_ms": {  # yardstick for the classifier part only
             "resnet18": head_resnet[f32]["addmm_ms"], "resnet18_bf16": head_resnet[bf16]["addmm_ms"],
             "vit_b16": head_vit[f32]["addmm_ms"], "vit_b16_bf16": head_vit[bf16]["addmm_ms"],
@@ -1948,7 +2173,8 @@ def main() -> int:
             "wrn_c100": head_w100[f32]["addmm_ms"], "wrn_c100_bf16": head_w100[bf16]["addmm_ms"],
             "wrn_c200": head_w200[f32]["addmm_ms"],
             "wrn_c200_bf16": head_w200[bf16]["addmm_ms"],
-            "b7b_d2560_c1000": b7_head["addmm_ms"], "resnet50_d2048_c1000": r50_head["addmm_ms"]},
+            "b7b_d2560_c1000": b7_head["addmm_ms"], "resnet50_d2048_c1000": r50_head["addmm_ms"],
+            **{key: head["addmm_ms"] for key, head in zoo_heads.items()}},
     }, {
         "name": "layernorm",
         "route": "cuda",

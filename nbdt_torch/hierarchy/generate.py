@@ -4,9 +4,9 @@ and checks.
 Counterpart of ``nbdt_tpu/hierarchy/generate.py``. ``generate_hierarchy``
 builds an induced, WordNet or random hierarchy, prunes and augments it and
 writes the reference's node-link JSON. Induced centers are the rows of a
-classifier, taken from a torch module (the first ``nn.Linear`` among
-:data:`CLASSIFIER_NAMES`), a state dict, a local ``.pth``, or given as an
-array.
+classifier, taken from a torch module (the first ``nn.Linear`` or 1x1
+``nn.Conv2d`` among :data:`CLASSIFIER_NAMES`), a state dict, a local
+``.pth``, or given as an array.
 """
 
 from __future__ import annotations
@@ -28,9 +28,14 @@ from .build import (
 )
 from .digraph import Digraph, get_depth, get_leaves, get_roots, read_graph, write_graph
 
-# The JAX package's probe order, with pytorchcv's ``output.fc`` (EfficientNet)
-# after ``output`` as in MODEL_FC_KEYS, then torchvision's ViT classifier.
-CLASSIFIER_NAMES = ("linear", "fc", "classifier", "head", "output", "output.fc", "heads.head")
+# The JAX package's probe order. torchvision's heads inside a ``classifier``
+# Sequential come where the JAX package finds them, under ``classifier``:
+# ``classifier.6`` (AlexNet, VGG's classic head, whose ``classifier.1`` or
+# ``.0`` is a hidden layer) before ``classifier.1`` (MobileNetV2, MNASNet,
+# SqueezeNet's 1x1 conv). pytorchcv's ``output.fc`` (EfficientNet) follows
+# ``output`` as in MODEL_FC_KEYS, then torchvision's ViT classifier.
+CLASSIFIER_NAMES = ("linear", "fc", "classifier", "classifier.6", "classifier.1", "head",
+                    "output", "output.fc", "heads.head")
 
 # Final classifier weight keys of the reference's model zoos, in its order.
 MODEL_FC_KEYS = (
@@ -47,21 +52,35 @@ MODEL_FC_KEYS = (
 )
 
 
-def get_classifier_from_module(module: nn.Module):
-    """The classifier of a backbone as ``(kernel [D, C], bias [C] or None)``,
-    numpy f32: the first ``nn.Linear`` among :data:`CLASSIFIER_NAMES`
-    (``weight`` is ``[C, D]``, so it is transposed to the JAX package's
-    kernel layout), or ``(None, None)`` if there is none."""
+def find_classifier(module: nn.Module):
+    """``(name, layer)`` of a backbone's classifier: the first ``nn.Linear``,
+    or 1x1 ``nn.Conv2d`` (SqueezeNet's fully convolutional head), among
+    :data:`CLASSIFIER_NAMES`; None if there is none."""
     for name in CLASSIFIER_NAMES:
         try:
             layer = module.get_submodule(name)
         except AttributeError:
             continue
-        if isinstance(layer, nn.Linear):
-            kernel = layer.weight.detach().float().cpu().numpy().T
-            bias = None if layer.bias is None else layer.bias.detach().float().cpu().numpy()
-            return np.ascontiguousarray(kernel), bias
-    return None, None
+        conv1x1 = (isinstance(layer, nn.Conv2d) and layer.kernel_size == (1, 1)
+                   and layer.groups == 1)
+        if isinstance(layer, nn.Linear) or conv1x1:
+            return name, layer
+    return None
+
+
+def get_classifier_from_module(module: nn.Module):
+    """The classifier of a backbone (:func:`find_classifier`) as ``(kernel
+    [D, C], bias [C] or None)``, numpy f32 (``weight`` is ``[C, D]``, or
+    ``[C, D, 1, 1]`` for a 1x1 conv, whose weight is the class-embedding
+    matrix too, so it is transposed to the JAX package's kernel layout), or
+    ``(None, None)`` if there is none."""
+    found = find_classifier(module)
+    if found is None:
+        return None, None
+    layer = found[1]
+    kernel = layer.weight.detach().float().cpu().numpy().reshape(layer.weight.shape[:2]).T
+    bias = None if layer.bias is None else layer.bias.detach().float().cpu().numpy()
+    return np.ascontiguousarray(kernel), bias
 
 
 def get_centers_from_state_dict(state_dict) -> Optional[np.ndarray]:
@@ -109,8 +128,9 @@ def resolve_centers(centers=None, state_dict=None, model: Optional[nn.Module] = 
         kernel, _ = get_classifier_from_module(model)
         if kernel is None:
             raise ValueError(
-                f"A model was given but it has no nn.Linear named one of {CLASSIFIER_NAMES}; "
-                f"pass centers= directly. Model type: {type(model).__name__}")
+                f"A model was given but it has no nn.Linear or 1x1 nn.Conv2d named one of "
+                f"{CLASSIFIER_NAMES}; pass centers= directly. Model type: "
+                f"{type(model).__name__}")
         return kernel.T
     raise ValueError("Need one of `centers`, `state_dict`, `checkpoint`, `model` to induce a "
                      "hierarchy.")

@@ -8,6 +8,7 @@ the entry, which hands the backbone a channels-last tensor.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -33,11 +34,19 @@ class TaggedOutput(torch.Tensor):
         return torch.as_tensor(data).as_subclass(cls)
 
 
+# Train-only auxiliary heads of torchvision's GoogLeNet (aux1, aux2) and
+# Inception v3 (AuxLogits): never part of the eval logits, not built in either
+# package.
+AUX_PREFIXES = ("aux1.", "aux2.", "AuxLogits.")
+
+
 def load_checkpoint(path) -> dict:
     """A reference-keyed state dict from a local torch ``.pth`` file
     (``net``/``state_dict`` wrapping and ``module.`` prefixes removed; a
     WRN's keys in pytorchcv's grammar, whichever of the two it was saved
-    in)."""
+    in; a GoogLeNet's or Inception v3's auxiliary heads dropped, with a
+    warning that torchvision's pretrained loaders build those models with
+    ``transform_input=True``)."""
     path = str(path)
     if not path.endswith((".pth", ".pt")):
         raise ValueError(
@@ -52,6 +61,13 @@ def load_checkpoint(path) -> dict:
             for k, v in data.items()}
     if any(k.startswith("features.init_block.") for k in data):
         data = pytorchcv_wrn_keys(data)
+    if any(k.startswith(("inception3a.", "Mixed_5b.")) for k in data):
+        warnings.warn(
+            f"{path}: torchvision's pretrained googlenet and inception_v3 checkpoints are "
+            "trained with transform_input=True; build the model with transform_input=True "
+            "(get_model(arch, n, transform_input=True)) or its logits will differ.",
+            stacklevel=2)
+        data = {k: v for k, v in data.items() if not k.startswith(AUX_PREFIXES)}
     return data
 
 
@@ -124,7 +140,8 @@ class NBDT:
         )
         kernel, bias = get_classifier_from_module(model)
         assert kernel is not None, (
-            f"no classifier (an nn.Linear named one of {CLASSIFIER_NAMES}) on the model")
+            f"no classifier (an nn.Linear or 1x1 nn.Conv2d named one of {CLASSIFIER_NAMES}) "
+            "on the model")
         return prepare_head_constants(tree.arrays, kernel, bias, device=self.device)
 
     def _input(self, x) -> torch.Tensor:

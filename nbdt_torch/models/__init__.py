@@ -1,10 +1,11 @@
 """Backbones of the port: the CIFAR and torchvision ResNets, the WideResNets,
-the EfficientNets, the ViTs, BN folding, the converter and the registry.
+the EfficientNets, the ViTs, the rest of torchvision's zoo (MobileNetV2,
+DenseNet, VGG, AlexNet, GoogLeNet, Inception v3, MNASNet, SqueezeNet,
+ShuffleNetV2), BN folding, the converter and the registry.
 
 Counterpart of ``nbdt_tpu/models/__init__.py``: the registry is an explicit
-dict of constructors ``arch -> (num_classes, dtype) -> nn.Module`` under the
-reference's names. The rest of the JAX zoo (MobileNetV2 ... ShuffleNetV2) is
-not ported yet.
+dict of constructors ``arch -> (num_classes, dtype, **kw) -> nn.Module``
+under the reference's names, every name of the JAX registry.
 """
 
 from typing import Callable, Dict, Optional
@@ -35,6 +36,21 @@ from .resnet import (
     wide_resnet50_2,
     wide_resnet101_2,
 )
+from .alexnet import AlexNet, alexnet
+from .densenet import DenseNet, densenet121, densenet161, densenet169, densenet201
+from .googlenet import GoogLeNet, googlenet
+from .inception import InceptionV3, inception_v3
+from .mnasnet import MNASNet, mnasnet0_5, mnasnet0_75, mnasnet1_0, mnasnet1_3
+from .mobilenet import MobileNetV2, mobilenet_v2
+from .shufflenet import (
+    ShuffleNetV2,
+    shufflenet_v2_x0_5,
+    shufflenet_v2_x1_0,
+    shufflenet_v2_x1_5,
+    shufflenet_v2_x2_0,
+)
+from .squeezenet import SqueezeNet, squeezenet1_0, squeezenet1_1
+from .vgg import VGG, vgg11, vgg11_bn, vgg13, vgg13_bn, vgg16, vgg16_bn, vgg19, vgg19_bn
 from .vit import ViT, vit_b16, vit_s16
 from .wideresnet import WRN, wrn28_10, wrn28_10_cifar10, wrn28_10_cifar100
 
@@ -62,6 +78,33 @@ MODEL_REGISTRY: Dict[str, Callable] = {
        for name in _efficientnet.__all__ if name != "EfficientNet"},
     "vit_b16": vit_b16,
     "vit_s16": vit_s16,
+    # the rest of torchvision's zoo, in the JAX registry's order
+    "mobilenet_v2": mobilenet_v2,
+    "densenet121": densenet121,
+    "densenet161": densenet161,
+    "densenet169": densenet169,
+    "densenet201": densenet201,
+    "vgg11": vgg11,
+    "vgg13": vgg13,
+    "vgg16": vgg16,
+    "vgg19": vgg19,
+    "vgg11_bn": vgg11_bn,
+    "vgg13_bn": vgg13_bn,
+    "vgg16_bn": vgg16_bn,
+    "vgg19_bn": vgg19_bn,
+    "alexnet": alexnet,
+    "googlenet": googlenet,
+    "inception_v3": inception_v3,
+    "mnasnet0_5": mnasnet0_5,
+    "mnasnet0_75": mnasnet0_75,
+    "mnasnet1_0": mnasnet1_0,
+    "mnasnet1_3": mnasnet1_3,
+    "squeezenet1_0": squeezenet1_0,
+    "squeezenet1_1": squeezenet1_1,
+    "shufflenet_v2_x0_5": shufflenet_v2_x0_5,
+    "shufflenet_v2_x1_0": shufflenet_v2_x1_0,
+    "shufflenet_v2_x1_5": shufflenet_v2_x1_5,
+    "shufflenet_v2_x2_0": shufflenet_v2_x2_0,
     "WRN": WRN,
 }
 
@@ -75,8 +118,8 @@ def register_model(name: str, ctor: Optional[Callable] = None,
                    override: bool = False) -> Callable:
     """Register a backbone constructor ``ctor(num_classes, dtype) ->
     nn.Module`` under ``name``; the module takes NCHW input, has
-    ``forward(x, features_only=False)`` and an ``nn.Linear`` classifier that
-    hierarchy induction's probe finds (one of
+    ``forward(x, features_only=False)`` and an ``nn.Linear`` (or 1x1
+    ``nn.Conv2d``) classifier that hierarchy induction's probe finds (one of
     ``nbdt_torch.hierarchy.generate.CLASSIFIER_NAMES``). Re-registering a
     name raises unless ``override=True``: a silent replacement would send
     every later ``get_model`` (conversion, induction, the CLIs) to another
@@ -103,7 +146,8 @@ def get_model(arch: str, num_classes: int, dtype: torch.dtype = torch.float32,
     """A backbone of the port by name (``MODEL_REGISTRY``); ``image_size``
     builds the ViTs for that input resolution (the others ignore it), and
     ``kw`` go to its constructor (``ln_impl``, ``attention_impl`` for a
-    ViT)."""
+    ViT, ``transform_input`` for googlenet and inception_v3,
+    ``classic_head`` for a VGG)."""
     if arch not in MODEL_REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; the port has {get_model_choices()}")
     if image_size is not None and arch in FIXED_RESOLUTION:

@@ -17,17 +17,28 @@ but for the WRN: there the keys are pytorchcv's (``features.init_block.weight``,
 ``...identity_conv.weight``), while the JAX package's exporter writes
 ``features.init_block.conv.weight`` and ``...identity_conv.conv.weight``.
 :func:`pytorchcv_wrn_keys` turns either grammar into pytorchcv's.
+
+The rest of the zoo (MobileNetV2, MNASNet, ShuffleNetV2, DenseNet, AlexNet,
+VGG, GoogLeNet, Inception v3, SqueezeNet) carries torchvision's keys, the
+set the JAX exporter emits, from one walk over the flax tree with a rename
+of each family's module names (a SqueezeNet's conv classifier keeps its
+``[C, D, 1, 1]`` weight). The one exception is a VGG with the JAX module's
+collapsed head, which has no torchvision form and which the JAX exporter
+refuses: its classifier maps to the port's own ``classifier.weight`` and
+``classifier.bias``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from collections.abc import Mapping
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 from .efficientnet import BASE_STAGES, pytorchcv_units
+from .vgg import CONFIGS as VGG_CONFIGS
 
 _BN_PARTS = (("scale", "params", "weight"), ("bias", "params", "bias"),
              ("mean", "batch_stats", "running_mean"),
@@ -172,7 +183,9 @@ def state_dict_from_flax(variables, arch: str) -> Dict[str, torch.Tensor]:
     as the JAX exporter keys on the arch's case; ``wrn28_10*`` or ``WRN`` (a
     WRN of any depth and width); ``efficientnet_*`` or ``EfficientNet`` (any
     variant); ``vit_b16``, ``vit_s16`` or ``ViT`` (a ViT of any depth and
-    width)."""
+    width); or a name of the rest of the zoo (``mobilenet_v2``, ``mnasnet*``,
+    ``shufflenet_v2_*``, ``densenet*``, ``alexnet``, ``vgg*``, ``googlenet``,
+    ``inception_v3``, ``squeezenet*``)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     if arch in ("vit_b16", "vit_s16", "ViT"):
@@ -183,11 +196,13 @@ def state_dict_from_flax(variables, arch: str) -> Dict[str, torch.Tensor]:
         out = _efficientnet_state_dict(params, stats)
     elif arch.startswith(("ResNet", "resnet", "resnext", "wide_resnet")):
         out = _resnet_state_dict(params, stats, torchvision=arch[:1].islower())
+    elif _zoo_rename(arch) is not None:
+        out = _zoo_state_dict(params, stats, _zoo_rename(arch))
     else:
         raise NotImplementedError(
             f"state_dict_from_flax handles ResNet*, resnet*, resnext*, wide_resnet*, "
-            f"wrn28_10*, WRN, efficientnet_*, EfficientNet, vit_b16, vit_s16 and ViT, "
-            f"not {arch!r}")
+            f"wrn28_10*, WRN, efficientnet_*, EfficientNet, vit_b16, vit_s16, ViT and the "
+            f"zoo's {', '.join(ZOO_PREFIXES)}, not {arch!r}")
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in out.items()}
 
 
@@ -211,4 +226,163 @@ def _resnet_state_dict(params, stats, torchvision: bool) -> Dict[str, np.ndarray
                 walk(leaf, s.get(name, {}), key + ".")
 
     walk(params, stats, "")
+    return out
+
+
+# The rest of the zoo: flax module path -> torchvision key prefix, given the
+# dict that holds the leaf (its siblings).
+Rename = Callable[[Tuple[str, ...], Mapping], str]
+ZOO_PREFIXES = ("mobilenet_v2", "mnasnet", "shufflenet_v2_", "densenet", "alexnet", "vgg",
+                "googlenet", "inception_v3", "squeezenet")
+
+
+def _mobilenet_name(path, siblings) -> str:
+    """``stem``/``stem_bn`` -> ``features.0.{0,1}``, ``head_conv``/``head_bn``
+    -> ``features.18.{0,1}``, ``block{i}/{expand,depthwise,project}[_bn]`` ->
+    ``features.{i+1}.conv.*`` (the block of expand ratio 1 has no expand
+    pair, which shifts the rest), ``classifier`` -> ``classifier.1``."""
+    fixed = {"stem": "features.0.0", "stem_bn": "features.0.1", "head_conv": "features.18.0",
+             "head_bn": "features.18.1", "classifier": "classifier.1"}
+    if len(path) == 1:
+        return fixed[path[0]]
+    block, sub = path
+    order = ["expand", "depthwise", "project"] if "expand" in siblings else ["depthwise",
+                                                                              "project"]
+    i, bn = order.index(sub.replace("_bn", "")), sub.endswith("_bn")
+    pos = f"{i}.{int(bn)}" if sub.replace("_bn", "") != "project" else str(i + bn)
+    return f"features.{int(block[5:]) + 1}.conv.{pos}"
+
+
+def _mnasnet_name(path, siblings) -> str:
+    """``l{i}`` -> ``layers.{i}``, ``l{i}_{r}/{conv,bn}{j}`` ->
+    ``layers.{i}.{r}.layers.{j}``, ``classifier`` -> ``classifier.1``."""
+    if path == ("classifier",):
+        return "classifier.1"
+    if len(path) == 1:
+        return f"layers.{path[0][1:]}"
+    i, r = path[0][1:].split("_")
+    return f"layers.{i}.{r}.layers.{re.sub(r'\D', '', path[1])}"
+
+
+def _shufflenet_name(path, siblings) -> str:
+    """``conv{1,5}_{k}`` -> ``conv{1,5}.{k}``, ``stage{s}_{u}/b{b}_{i}`` ->
+    ``stage{s}.{u}.branch{b}.{i}``, ``fc``."""
+    if len(path) == 1:
+        return path[0].replace("_", ".")
+    unit, sub = path
+    return f"{unit.replace('_', '.')}.branch{sub[1]}.{sub[3:]}"
+
+
+def _densenet_name(path, siblings) -> str:
+    """``stem``/``stem_bn`` -> ``features.conv0/norm0``,
+    ``block{b}_layer{l}/{conv,bn}{k}`` ->
+    ``features.denseblock{b+1}.denselayer{l+1}.{conv,norm}{k}``,
+    ``trans{t}_{conv,bn}`` -> ``features.transition{t+1}.{conv,norm}``,
+    ``final_bn`` -> ``features.norm5``, ``classifier``."""
+    name = path[0]
+    if name == "classifier":
+        return name
+    fixed = {"stem": "conv0", "stem_bn": "norm0", "final_bn": "norm5"}
+    if name in fixed:
+        return f"features.{fixed[name]}"
+    m = re.fullmatch(r"trans(\d+)_(conv|bn)", name)
+    if m:
+        return f"features.transition{int(m.group(1)) + 1}." + (
+            "conv" if m.group(2) == "conv" else "norm")
+    b, l = re.fullmatch(r"block(\d+)_layer(\d+)", name).groups()
+    return (f"features.denseblock{int(b) + 1}.denselayer{int(l) + 1}."
+            + path[1].replace("bn", "norm"))
+
+
+def _alexnet_name(path, siblings) -> str:
+    """``f{i}`` -> ``features.{i}``; ``fc1``/``fc2``/``classifier`` ->
+    ``classifier.{1,4,6}``."""
+    name = path[0]
+    return {"fc1": "classifier.1", "fc2": "classifier.4",
+            "classifier": "classifier.6"}.get(name, f"features.{name[1:]}")
+
+
+def _vgg_name(depth: int, bn: bool) -> Rename:
+    """``conv{i}``/``bn{i}`` -> ``features.{index}`` at torchvision's
+    Sequential indices (a conv, its BatchNorm, a ReLU; a max-pool takes one
+    index); ``fc1``/``fc2``/``classifier`` -> ``classifier.{0,3,6}``, or
+    ``classifier`` alone for the collapsed head."""
+    at, seq, i = {}, 0, 0
+    for v in VGG_CONFIGS[depth]:
+        if v == "M":
+            seq += 1
+            continue
+        at[f"conv{i}"] = seq
+        if bn:
+            at[f"bn{i}"] = seq + 1
+        seq, i = seq + 2 + bn, i + 1
+
+    def rename(path, siblings) -> str:
+        name = path[0]
+        if name in at:
+            return f"features.{at[name]}"
+        if "fc1" not in siblings:  # the collapsed head: the port's own key
+            return "classifier"
+        return {"fc1": "classifier.0", "fc2": "classifier.3", "classifier": "classifier.6"}[name]
+
+    return rename
+
+
+def _googlenet_name(path, siblings) -> str:
+    """The torch attribute path; a Sequential index fused into its parent's
+    name (``branch2_0``) is split again (``branch2.0``)."""
+    return ".".join(re.sub(r"^(branch\d)_(\d)$", r"\1.\2", p) for p in path)
+
+
+def _inception_name(path, siblings) -> str:
+    """The torch attribute path (``Mixed_5b.branch5x5_1.conv``)."""
+    return ".".join(path)
+
+
+def _squeezenet_name(path, siblings) -> str:
+    """``f{i}[/squeeze|expand1x1|expand3x3]`` -> ``features.{i}[...]``,
+    ``classifier`` -> ``classifier.1``."""
+    if path == ("classifier",):
+        return "classifier.1"
+    return ".".join([f"features.{path[0][1:]}", *path[1:]])
+
+
+def _zoo_rename(arch: str):
+    """The rename of ``arch``'s family, or None outside the zoo."""
+    if arch.startswith("vgg"):
+        m = re.fullmatch(r"vgg(11|13|16|19)(_bn)?", arch)
+        return _vgg_name(int(m.group(1)), bool(m.group(2))) if m else None
+    for prefix, rename in (("mobilenet_v2", _mobilenet_name), ("mnasnet", _mnasnet_name),
+                           ("shufflenet_v2_", _shufflenet_name), ("densenet", _densenet_name),
+                           ("alexnet", _alexnet_name), ("googlenet", _googlenet_name),
+                           ("inception_v3", _inception_name), ("squeezenet", _squeezenet_name)):
+        if arch.startswith(prefix):
+            return rename
+    return None
+
+
+def _zoo_state_dict(params, stats, rename: Rename) -> Dict[str, np.ndarray]:
+    """One walk over the flax tree: a conv kernel HWIO -> OIHW (its bias as
+    it is), a Dense kernel ``[D, C]`` -> ``[C, D]``, a BatchNorm's four
+    parts, each under ``rename(path, siblings)``."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(p, s, path):
+        for name, leaf in p.items():
+            here = path + (name,)
+            if "kernel" in leaf:
+                key, kernel = rename(here, p), np.asarray(leaf["kernel"])
+                out[f"{key}.weight"] = (np.transpose(kernel, (3, 2, 0, 1)) if kernel.ndim == 4
+                                        else kernel.T)
+                if "bias" in leaf:
+                    out[f"{key}.bias"] = np.asarray(leaf["bias"])
+            elif "scale" in leaf:
+                key = rename(here, p)
+                for flax_part, coll, torch_part in _BN_PARTS:
+                    out[f"{key}.{torch_part}"] = np.asarray(
+                        (leaf if coll == "params" else s[name])[flax_part])
+            else:
+                walk(leaf, s.get(name, {}), here)
+
+    walk(params, stats, ())
     return out

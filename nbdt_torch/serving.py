@@ -28,10 +28,12 @@ def make_serving_fn(
     product of path probabilities (unnormalized; argmax is the prediction).
 
     ``module`` is a port backbone (a CIFAR or torchvision ResNet, ResNeXt or
-    wide ResNet, a WRN, an EfficientNet or a ViT) with ``dtype`` and
-    ``clone(dtype=...)``. ``bf16`` runs it with a bfloat16 stream; node
-    decisions always compute in f32. ``fold_bn`` folds BatchNorm into the
-    conv weights first (the ResNet family; anything else, the EfficientNets
+    wide ResNet, a WRN, an EfficientNet, a ViT, or one of MobileNetV2,
+    MNASNet, ShuffleNetV2, DenseNet, AlexNet, VGG, GoogLeNet, Inception v3
+    and SqueezeNet) with ``dtype`` and ``clone(dtype=...)``. ``bf16`` runs
+    it with a bfloat16 stream; node decisions always compute in f32.
+    ``fold_bn`` folds BatchNorm into the conv weights first (the ResNet
+    family; anything else, the EfficientNets and the rest of the zoo
     included, raises TypeError, as in the JAX package). ``uint8_input``
     accepts raw uint8 NHWC batches and normalizes on the device; ``normalize`` is ``(mean, std)`` in [0,1]
     units, the CIFAR constants by default. As in the JAX package this calls

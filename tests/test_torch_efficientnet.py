@@ -275,7 +275,7 @@ def test_register_model_refuses_a_duplicate():
     finally:
         del tm.MODEL_REGISTRY["_test_tiny_effnet"]
     with pytest.raises(KeyError, match="efficientnet_b7b"):
-        tm.get_model("densenet121", 10)
+        tm.get_model("yournet18", 10)
 
 
 def test_registry_has_every_jax_resnet_and_efficientnet():

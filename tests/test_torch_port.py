@@ -124,8 +124,43 @@ def random_variables(variables, seed=0):
                 walk(p[name], s.get(name, {}))
 
     out = copy(variables)
-    walk(out["params"], out["batch_stats"])
+    walk(out["params"], out.get("batch_stats", {}))  # AlexNet, SqueezeNet: no BatchNorm
     return out
+
+
+def zoo_pair(arch, img, num_classes=10, seed=0, **kw):
+    """(flax module, numpy variables with perturbed BatchNorms, port module
+    loaded from them in eval mode, seeded images [2, img, img, 3], the
+    jitted JAX forward ``fwd(variables, x, features_only)``) for a zoo arch;
+    ``kw`` go to both constructors (``classic_head``, ``transform_input``)."""
+    import jax
+    import jax.numpy as jnp
+    from nbdt_tpu.models import get_model
+
+    import nbdt_torch.models as tm
+
+    module = get_model(arch, num_classes, **kw)
+    variables = jax.jit(module.init)(jax.random.PRNGKey(seed), jnp.zeros((1, img, img, 3)))
+    variables = random_variables(variables, seed)
+    port = tm.get_model(arch, num_classes, **kw)
+    port.load_state_dict(tm.state_dict_from_flax(variables, arch), strict=True)
+    x = np.random.RandomState(seed + 1).randn(2, img, img, 3).astype(np.float32)
+    fwd = jax.jit(lambda v, x, f: module.apply(v, x, features_only=f), static_argnums=2)
+    return module, variables, port.eval(), x, fwd
+
+
+def induced_tree_pair(centers, wnids):
+    """(nbdt_tpu Tree, nbdt_torch Tree) of the hierarchy each package
+    induces from the same class centers ``[C, D]`` over ``wnids``."""
+    from nbdt_tpu.hierarchy.build import build_induced_graph as jbuild
+    from nbdt_tpu.tree import Tree as JTree
+
+    from nbdt_torch.hierarchy.build import build_induced_graph as tbuild
+    from nbdt_torch.tree import Tree as TTree
+
+    classes = [f"c{i}" for i in range(len(wnids))]
+    return (JTree.from_graph(jbuild(wnids, centers), wnids, classes=classes),
+            TTree.from_graph(tbuild(wnids, centers), wnids, classes=classes))
 
 
 def resnet_pair(arch="ResNet10", num_classes=10, img=32, seed=0):

@@ -234,7 +234,7 @@ def test_converter_refuses_an_unknown_arch():
     import nbdt_torch.models as tm
 
     with pytest.raises(NotImplementedError, match="efficientnet_"):
-        tm.state_dict_from_flax({"params": {}}, "densenet121")
+        tm.state_dict_from_flax({"params": {}}, "yournet18")
 
 
 def test_cli_bn_impl(tmp_path, monkeypatch):

@@ -241,8 +241,8 @@ def test_phase_profiler_finds_every_phase_in_the_kernel_source():
 
 # The widths of the heads the trees meet: ResNet18/34 and ViT-S (512), WRN-28-10
 # (640), ViT-B (768), DenseNet/ResNet variants (1024), EfficientNet (1280-2560),
-# ResNet50-152 (2048).
-WIDTHS = (512, 640, 768, 1024, 1280, 1536, 2048, 2560)
+# ResNet50-152 (2048), AlexNet and VGG's classic head (4096).
+WIDTHS = (512, 640, 768, 1024, 1280, 1536, 2048, 2560, 4096)
 VENDORED = ("CIFAR10", "CIFAR100", "TinyImagenet200", "Imagenet1000")
 
 
@@ -313,3 +313,50 @@ def test_plan_walk_at_wide_heads(name, D):
     assert plan.instance == "cluster"
     for g, w in zip(_walk(feats, hc, plan), soft_head_reference(feats, hc)):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_imagenet1000_head_plans_at_the_zoo_widths():
+    """The zoo's heads on the Imagenet1000 induced tree at a request of 256
+    (DenseNet, GoogLeNet, ShuffleNetV2 1024; MobileNetV2, MNASNet 1280;
+    Inception v3 2048; AlexNet and VGG's classic head 4096) plan the
+    cluster instance in f32 and bf16, at one shared-memory size."""
+    from nbdt_torch.ops.soft_traversal import SMEM_LIMIT, head_plan
+
+    hc = _constants(_tree("Imagenet1000"), 8)
+    for dtype in (torch.float32, torch.bfloat16):
+        plans = [head_plan(hc._replace(W=torch.empty(D, 1000, dtype=dtype)), 256)
+                 for D in (1024, 1280, 2048, 4096)]
+        assert {p.instance for p in plans} == {"cluster"}
+        assert len({p.smem_bytes for p in plans}) == 1 and plans[0].smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.gpu
+def test_soft_head_kernel_at_d4096_matches_plain_on_gpu():
+    """B1 against its plain version on the card at AlexNet's and VGG's head
+    shape, B=256, D=4096, C=1000 (the Imagenet1000 induced tree): f32 W
+    within 1e-4 on the leaf log-probs, bf16 W within 1e-2 relative on the
+    leaf probabilities, argmax equal on rows whose plain top-2 gap exceeds
+    1e-4, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nbdt_torch.ops import soft_traversal as st
+
+    ta = _tree("Imagenet1000").arrays
+    rng = np.random.RandomState(0)
+    W = (rng.randn(4096, ta.num_classes) / 64).astype(np.float32)
+    feats = torch.as_tensor(np.abs(rng.randn(256, 4096)).astype(np.float32), device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        hc = st.prepare_head_constants(ta, W, rng.randn(ta.num_classes), dtype=dtype)
+        before = st.launches
+        (got,) = st.fused_soft_head(feats.to(dtype), hc, want_aux=False)
+        assert st.launches == before + 1
+        (want,) = st.soft_head_reference(feats.to(dtype), hc, want_aux=False)
+        torch.cuda.synchronize()
+        assert st.last_launch["plan"].instance == "cluster"
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        else:
+            torch.testing.assert_close(got.exp(), want.exp(), rtol=1e-2, atol=1e-4)
+        top2 = want.topk(2, dim=1).values
+        decided = top2[:, 0] - top2[:, 1] > 1e-4
+        assert torch.equal(got.argmax(1)[decided], want.argmax(1)[decided])

@@ -280,10 +280,15 @@ def test_get_model_registry():
                "resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
                "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2"]
     effnets = [f"efficientnet_b{i}{s}" for i in range(9) for s in ("", "b", "c")]
+    zoo = ["mobilenet_v2", "densenet121", "densenet161", "densenet169", "densenet201",
+           "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn",
+           "alexnet", "googlenet", "inception_v3", "mnasnet0_5", "mnasnet0_75", "mnasnet1_0",
+           "mnasnet1_3", "squeezenet1_0", "squeezenet1_1", "shufflenet_v2_x0_5",
+           "shufflenet_v2_x1_0", "shufflenet_v2_x1_5", "shufflenet_v2_x2_0"]
     assert sorted(tm.MODEL_REGISTRY) == sorted(
-        resnets + effnets + ["WRN", "vit_b16", "vit_s16", "wrn28_10", "wrn28_10_cifar10",
-                             "wrn28_10_cifar100"])
+        resnets + effnets + zoo + ["WRN", "vit_b16", "vit_s16", "wrn28_10", "wrn28_10_cifar10",
+                                   "wrn28_10_cifar100"])
     with pytest.raises(KeyError, match="unknown arch"):
-        tm.get_model("densenet121", 10)  # the rest of the zoo: ROADMAP A14
+        tm.get_model("yournet18", 10)
     with pytest.raises(ValueError, match="ln_impl"):
         tm.vit_s16(10, ln_impl="fast")
