@@ -28,7 +28,13 @@ with torchvision's head, ShuffleNetV2-x1.0 at 224px and Inception v3 at 299px,
 at D=1024, 1280, 2048 and 4096, C=1000, their classifiers found by the probe;
 SqueezeNet-1.1 through the plain rules, its fused head refused; each bf16
 serving fn; one forward of each of the zoo's 26 names; the CLI's ``--arch
-mobilenet_v2 --eval``). Builds every
+mobilenet_v2 --eval``), and the export path (the ResNet18 serving fn as a
+``torch.export`` artifact: loaded and run at batches 1, 7 and 8192, run by a
+process with torch alone, its tree products exact under a caller's "medium"
+precision; ``aot_compile`` at batch 8192 as one graph; the ``nbdt_export``
+CLI on a seeded WRN-28-10 at 1024; that WRN found in the checkpoint cache
+under its released name by the ``nbdt`` CLI's builder, with the decision
+line and ``nbdt-original``'s prediction). Builds every
 hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
 PyTorch version, checks each path's launch counts and outputs, and times the
 kernels and requests with CUDA events. Exits nonzero, printing no result,
@@ -40,7 +46,8 @@ Phases: device, build, the conv probe's inputs, kernel vs plain (soft_head,
 layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
 its f32 gate, its serving fn, the conv probe path (one request, then the
 probe's parity and timing phases), the training path, the WRN-28-10 serving
-and training path, the zero-shot path, the ImageNet path, the zoo path, times.
+and training path, the zero-shot path, the ImageNet path, the zoo path, the
+export path, times.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import io
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -61,7 +69,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nbdt_torch import HardNBDT, SoftNBDT, make_serving_fn
+from nbdt_torch import (HardNBDT, SoftNBDT, aot_compile, export_serving, load_serving,
+                        make_serving_fn)
 from nbdt_torch import losses as tl
 from nbdt_torch.analysis import HardEmbeddedDecisionRules as HardAnalyzer
 from nbdt_torch.analysis import SoftEmbeddedDecisionRules as SoftAnalyzer
@@ -70,7 +79,7 @@ from nbdt_torch.data.transforms import CIFAR_MEAN, CIFAR_STD, IMAGENET_MEAN, IMA
 from nbdt_torch.hierarchy.digraph import Digraph
 from nbdt_torch.hierarchy.generate import find_classifier
 from nbdt_torch.main import main as train_cli
-from nbdt_torch.models import ResNet18, vit_b16, wrn28_10_cifar100
+from nbdt_torch.models import ResNet18, vit_b16, wrn28_10_cifar10, wrn28_10_cifar100
 from nbdt_torch.ops import _build
 from nbdt_torch.ops import conv3x3 as conv
 from nbdt_torch.ops import layernorm as ln
@@ -216,6 +225,15 @@ ZOO_NAMES = ("mobilenet_v2", "densenet121", "densenet161", "densenet169", "dense
              "alexnet", "googlenet", "inception_v3", "mnasnet0_5", "mnasnet0_75", "mnasnet1_0",
              "mnasnet1_3", "squeezenet1_0", "squeezenet1_1", "shufflenet_v2_x0_5",
              "shufflenet_v2_x1_0", "shufflenet_v2_x1_5", "shufflenet_v2_x2_0")
+
+
+# The export path (ROADMAP A12): the flagship artifact runs at these batches
+# (1 and 7 off the traced batch of 2, then the serving batch); the f32
+# artifact's exactness check takes EXPORT_EXACT_BATCH images; leaves that
+# must be the same computation agree within EXPORT_TOL
+EXPORT_BATCHES = (1, 7, BATCH)
+EXPORT_EXACT_BATCH = 1024
+EXPORT_TOL = 1e-6
 
 
 def check(ok: bool, msg: str) -> None:
@@ -675,18 +693,26 @@ def run_conv_probe_path(inp: probe.ProbeInputs) -> dict:
     return {"launches": launches, "zero_share": zeros, **res}
 
 
-def run_resnet_path(trees: dict) -> dict:
-    """ResNet18 main path (3 requests of 8192 through SoftNBDT(fused=True))
-    and its serving fn. Returns the launches and the request times."""
+def seeded_resnet18(cgen: torch.Generator) -> torch.nn.Module:
+    """The ResNet18 (CIFAR10) of the main path, on the card: seeded
+    BatchNorms, the classifier calibrated on 1024 images drawn from
+    ``cgen``."""
     gen = torch.Generator().manual_seed(0)
     torch.manual_seed(0)
     model = ResNet18(10)
     randomize_batchnorm(model, gen)
-    tree = trees["CIFAR10"]
-    cgen = torch.Generator(device="cuda").manual_seed(1)
     model = model.to("cuda", memory_format=torch.channels_last).eval()
     calibrate_classifier(model, model.linear,
                          torch.randn(1024, 32, 32, 3, device="cuda", generator=cgen), gen)
+    return model
+
+
+def run_resnet_path(trees: dict) -> dict:
+    """ResNet18 main path (3 requests of 8192 through SoftNBDT(fused=True))
+    and its serving fn. Returns the launches and the request times."""
+    tree = trees["CIFAR10"]
+    cgen = torch.Generator(device="cuda").manual_seed(1)
+    model = seeded_resnet18(cgen)
     fused = SoftNBDT("CIFAR10", model, tree=tree, fused=True)
     plain = SoftNBDT("CIFAR10", model, tree=tree)
     requests = [torch.randn(BATCH, 32, 32, 3, device="cuda", generator=cgen)
@@ -1835,6 +1861,335 @@ def forward_every_name() -> dict:
     return out
 
 
+def leaf_gate(got: torch.Tensor, want: torch.Tensor, rows: int, classes: int, case: str) -> dict:
+    """Finite leaves of the expected shape whose argmax agrees with
+    ``want``'s on every row decided by more than TOL (top-2 leaf
+    probabilities); returns the agreement and the largest difference."""
+    check(got.shape == (rows, classes) and bool(torch.isfinite(got).all()),
+          f"{case}: bad output {tuple(got.shape)}")
+    agree, ties, raw = argmax_agreement(got, want, TOL)
+    err = float((got - want).abs().max())
+    print(f"[export] {case}: argmax agreement {agree} ({ties} tie rows, raw {raw}), max |leaf "
+          f"prob diff| {err:.3g}", flush=True)
+    check(agree == 1.0, f"{case}: argmax agreement {agree}")
+    return {"argmax_agreement": agree, "tie_rows": ties, "max_leaf_diff": err}
+
+
+def loaded_program(path: Path) -> tuple:
+    """(4-d weights in the saved program, how many of them are channels-last
+    as ``torch.export.load`` gives them back, the batch range its graph
+    allows)."""
+    program = torch.export.load(str(path))
+    weights = [v for v in program.state_dict.values() if v.dim() == 4]
+    return (len(weights), sum(v.is_contiguous(memory_format=torch.channels_last) for v in weights),
+            str(next(iter(program.range_constraints.values()))))
+
+
+def export_flagship(model, tree: Tree, workdir: Path, cgen: torch.Generator) -> dict:
+    """(a) the flagship artifact: ResNet18 bf16 + fold_bn + uint8 at 32px,
+    exported, loaded and run at batches 1, 7 and 8192 against the live
+    serving fn; 3 requests of 8192 timed beside it. (b) the same file run
+    in a process that imports torch and nothing of the repository."""
+    flags = {"bf16": True, "fold_bn": True, "uint8_input": True}
+    live = make_serving_fn(model, tree, **flags)
+    path = workdir / "resnet18_bf16_folded_uint8.pt2"
+    t0 = time.perf_counter()
+    export_serving(model, tree, str(path), 32, **flags)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = load_serving(str(path))
+    load_s = time.perf_counter() - t0
+    n_convs, n_cl, batches = loaded_program(path)
+    rec = {"bytes": path.stat().st_size, "export_s": export_s, "load_s": load_s,
+           "conv_weights": n_convs, "conv_weights_channels_last": n_cl, "batch_range": batches}
+    print(f"[export] (a) ResNet18 bf16+fold_bn+uint8 artifact: {rec['bytes']} bytes, export "
+          f"{export_s:.2f} s, load {load_s:.2f} s; {n_cl} of {n_convs} conv weights "
+          f"channels-last after torch.export.load; batch range {batches}", flush=True)
+    for b in EXPORT_BATCHES:
+        u8 = torch.randint(0, 256, (b, 32, 32, 3), dtype=torch.uint8, device="cuda",
+                           generator=cgen)
+        rec[f"batch_{b}"] = leaf_gate(served(u8), live(u8), b, 10, f"(a) artifact batch {b}")
+    rec["artifact_ms_per_request"] = time_cuda(lambda: served(u8), n=REQUESTS)
+    rec["live_ms_per_request"] = time_cuda(lambda: live(u8), n=REQUESTS)
+    print(f"[export] (a) request of {BATCH}: artifact {rec['artifact_ms_per_request']:.3f} ms, "
+          f"live serving fn {rec['live_ms_per_request']:.3f} ms (CUDA events, {REQUESTS} "
+          "requests)", flush=True)
+
+    # (b) self-containment: torch alone, "highest" set by the caller
+    leaves = served(u8)
+    torch.save(u8.cpu(), workdir / "request.pt")
+    code = (
+        "import sys, torch\n"
+        "torch.set_float32_matmul_precision('highest')\n"
+        "torch.backends.cudnn.allow_tf32 = False\n"
+        f"program = torch.export.load({path.name!r}).module()\n"
+        "with torch.no_grad():\n"
+        "    out = program(torch.load('request.pt').cuda())\n"
+        "torch.save(out.cpu(), 'leaves.pt')\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('nbdt_torch', 'nbdt_tpu', "
+        "'jax', 'flax')))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "PYTHONSTARTUP")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=workdir, env=env,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"(b) torch-only process failed: {proc.stderr[-2000:]}")
+    check(proc.stdout.strip() == "[]", f"(b) the process imported {proc.stdout.strip()}")
+    err = float((torch.load(workdir / "leaves.pt") - leaves.cpu()).abs().max())
+    print(f"[export] (b) torch.export.load(...).module() in a process with torch alone "
+          f"({time.perf_counter() - t0:.1f} s): max |leaf diff| {err:.3g} against (a) "
+          f"(limit {EXPORT_TOL})", flush=True)
+    check(err <= EXPORT_TOL, f"(b) leaves differ from (a)'s by {err}")
+    rec["torch_only_max_leaf_diff"] = err
+    return rec
+
+
+def export_exactness(model, tree: Tree, workdir: Path, cgen: torch.Generator) -> dict:
+    """(c) an f32 artifact called under the caller's "medium" precision: its
+    two tree products run at "highest" (PrecisionSpy), and its leaves equal
+    the same call under "highest"."""
+    path = workdir / "resnet18_f32.pt2"
+    export_serving(model, tree, str(path), 32, bf16=False)
+    served = load_serving(str(path))
+    batches = loaded_program(path)[2]
+    x = torch.randn(EXPORT_EXACT_BATCH, 32, 32, 3, device="cuda", generator=cgen)
+    S = tree.arrays.num_inodes * tree.arrays.max_children
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        spy = PrecisionSpy()
+        with spy:
+            got = served(x)
+        torch.cuda.synchronize()
+        check(torch.get_float32_matmul_precision() == "medium",
+              "(c) load_serving did not restore the caller's precision")
+        torch.set_float32_matmul_precision("highest")
+        want = served(x)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    products = [prec for shapes, prec in spy.calls if any(S in shape for shape in shapes)]
+    err = float((got - want).abs().max())
+    print(f"[export] (c) f32 artifact (batch range {batches}) under the caller's \"medium\": "
+          f"tree products at {products}, all matmuls at {sorted({p for _, p in spy.calls})}; "
+          f"max |leaf diff| {err:.3g} against the call under \"highest\" (limit {EXPORT_TOL})",
+          flush=True)
+    check(products == ["highest", "highest"], f"(c) tree products ran at {products}")
+    check(err <= EXPORT_TOL, f"(c) leaves under \"medium\" differ by {err}")
+    return {"tree_products": products, "max_leaf_diff": err, "batch_range": batches}
+
+
+def export_aot(model, tree: Tree, cgen: torch.Generator) -> dict:
+    """(d) aot_compile of the flagship serving fn at batch 8192, uint8
+    input: the graph count under torch._dynamo.explain (gated at 1), the
+    compile seconds, argmax agreement with the live fn, 3 requests timed."""
+    live = make_serving_fn(model, tree, bf16=True, fold_bn=True, uint8_input=True)
+    u8 = torch.randint(0, 256, (BATCH, 32, 32, 3), dtype=torch.uint8, device="cuda",
+                       generator=cgen)
+    torch._dynamo.reset()
+    explained = torch._dynamo.explain(live)(u8)
+    graphs, breaks = explained.graph_count, explained.graph_break_count
+    torch._dynamo.reset()
+    t0 = time.perf_counter()
+    compiled = aot_compile(live, BATCH, 32, dtype=torch.uint8)
+    compile_s = time.perf_counter() - t0
+    print(f"[export] (d) aot_compile at batch {BATCH}: {graphs} graph(s), {breaks} break(s) "
+          f"under torch._dynamo.explain; compile and warm-up {compile_s:.1f} s", flush=True)
+    check(graphs == 1, f"(d) the serving fn compiles to {graphs} graphs")
+    rec = {"graphs": graphs, "graph_breaks": breaks, "compile_s": compile_s}
+    rec.update(leaf_gate(compiled(u8), live(u8), BATCH, 10, "(d) aot_compile"))
+    rec["aot_ms_per_request"] = time_cuda(lambda: compiled(u8), n=REQUESTS)
+    rec["live_ms_per_request"] = time_cuda(lambda: live(u8), n=REQUESTS)
+    print(f"[export] (d) request of {BATCH}: aot_compile {rec['aot_ms_per_request']:.3f} ms, "
+          f"live serving fn {rec['live_ms_per_request']:.3f} ms", flush=True)
+    for key, fn in (("live", live), ("aot", compiled)):
+        wall, device, ops, seen = profile_ms(lambda: fn(u8), n=REQUESTS)
+        print_profile(f"ResNet18 {key} serving fn request of {BATCH}", wall, device, ops, seen)
+        rec[f"{key}_device_busy_ms"] = sum(device.values())
+        rec[f"{key}_kernels_per_request"] = sum(seen.values()) / REQUESTS
+    return rec
+
+
+def seeded_wrn_cifar10() -> torch.nn.Module:
+    """WRN-28-10 for CIFAR10 (the released checkpoint's arch and the nbdt
+    CLI's default) on the card: seeded BatchNorms, calibrated classifier."""
+    gen = torch.Generator().manual_seed(50)
+    torch.manual_seed(50)
+    model = wrn28_10_cifar10()
+    randomize_batchnorm(model, gen)
+    cgen = torch.Generator(device="cuda").manual_seed(51)
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    calibrate_classifier(model, model.output,
+                         torch.randn(WRN_BATCH, 32, 32, 3, device="cuda", generator=cgen), gen)
+    return model
+
+
+def export_cli(model, tree: Tree, workdir: Path, pth: Path, cgen: torch.Generator) -> dict:
+    """(e) ``python -m nbdt_torch.bin.nbdt_export --arch wrn28_10_cifar10
+    --checkpoint <pth> --uint8-input`` in this process (bf16 by default),
+    then 3 requests of 1024 through the artifact against the live serving
+    fn on the same weights, both timed."""
+    from nbdt_torch.bin.nbdt_export import main as export_main
+    from nbdt_torch.data import CIFAR10
+
+    path = workdir / "wrn.pt2"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        export_main(["--arch", "wrn28_10_cifar10", "--dataset", "CIFAR10", "--checkpoint",
+                     str(pth), "--uint8-input", "--out", str(path)])
+    export_s = time.perf_counter() - t0
+    print(f"[export] (e) {buf.getvalue().strip()} in {export_s:.1f} s", flush=True)
+    check(buf.getvalue().startswith("==> Exported wrn28_10_cifar10/CIFAR10 serving artifact"),
+          "(e) the export CLI printed no ==> Exported line")
+    served = load_serving(str(path))
+    live = make_serving_fn(model, tree, bf16=True, uint8_input=True,
+                           normalize=(CIFAR10.mean, CIFAR10.std))
+    n_convs, n_cl, batches = loaded_program(path)
+    rec = {"bytes": path.stat().st_size, "export_s": export_s, "conv_weights": n_convs,
+           "conv_weights_channels_last": n_cl, "batch_range": batches}
+    for i in range(REQUESTS):
+        u8 = torch.randint(0, 256, (WRN_BATCH, 32, 32, 3), dtype=torch.uint8, device="cuda",
+                           generator=cgen)
+        rec[f"request_{i}"] = leaf_gate(served(u8), live(u8), WRN_BATCH, 10,
+                                        f"(e) WRN-28-10 artifact request {i}")
+    rec["artifact_ms_per_request"] = time_cuda(lambda: served(u8), n=REQUESTS)
+    rec["live_ms_per_request"] = time_cuda(lambda: live(u8), n=REQUESTS)
+    print(f"[export] (e) WRN-28-10 request of {WRN_BATCH}: artifact "
+          f"{rec['artifact_ms_per_request']:.3f} ms, live serving fn "
+          f"{rec['live_ms_per_request']:.3f} ms; {n_cl} of {n_convs} conv weights channels-last; "
+          f"batch range {batches}", flush=True)
+    return rec
+
+
+@contextlib.contextmanager
+def release_cache(cache: Path):
+    """NBDT_CHECKPOINT_DIR set to ``cache`` and every download refused, for
+    the block: a lookup must find its file there."""
+    import nbdt_torch.models.utils as ckpt_utils
+
+    def no_download(url, dest):
+        raise RuntimeError(f"tried to download {url}")
+
+    prev_dir, prev_download = os.environ.get("NBDT_CHECKPOINT_DIR"), ckpt_utils.download_checkpoint
+    os.environ["NBDT_CHECKPOINT_DIR"] = str(cache)
+    ckpt_utils.download_checkpoint = no_download
+    try:
+        yield
+    finally:
+        ckpt_utils.download_checkpoint = prev_download
+        if prev_dir is None:
+            os.environ.pop("NBDT_CHECKPOINT_DIR")
+        else:
+            os.environ["NBDT_CHECKPOINT_DIR"] = prev_dir
+
+
+def export_pretrained(model, pth: Path, workdir: Path, cgen: torch.Generator) -> dict:
+    """(f) the seeded WRN .pth placed under the released file name of
+    ("wrn28_10_cifar10", "CIFAR10") in a fresh NBDT_CHECKPOINT_DIR: the nbdt
+    CLI's model builder loads it with no path and no download; its decision
+    line and nbdt-original's prediction for one normalized image, each
+    equal to the model's own argmax. Where PIL is installed, both CLIs also
+    run end to end on a seeded PNG."""
+    import importlib.util
+
+    from nbdt_torch import model_urls
+    from nbdt_torch.bin.nbdt import build_model, decision_line
+    from nbdt_torch.bin.original import load_backbone, prediction
+    from nbdt_torch.utils import DATASET_TO_CLASSES
+
+    cache = workdir / "cache"
+    cache.mkdir()
+    name = model_urls[("wrn28_10_cifar10", "CIFAR10")].rsplit("/", 1)[-1]
+    shutil.copy(pth, cache / name)
+    with release_cache(cache):
+        nbdt = build_model("wrn28_10_cifar10", "CIFAR10")
+    u8 = torch.randint(0, 256, (1, 32, 32, 3), dtype=torch.uint8, device="cuda", generator=cgen)
+    x = (u8.float() / 255.0 - torch.as_tensor(CIFAR_MEAN, device="cuda")) / torch.as_tensor(
+        CIFAR_STD, device="cuda")
+    with torch.no_grad():
+        logits = model(x.permute(0, 3, 1, 2))
+    classes = DATASET_TO_CLASSES["CIFAR10"]
+    line = decision_line(nbdt, x)
+    want = SoftNBDT("CIFAR10", model, arch="wrn28_10_cifar10")(x).argmax(1)
+    print(f"[export] (f) nbdt, SoftNBDT(pretrained=True) from {cache / name}: {line}", flush=True)
+    check(line.startswith(f"Prediction: {nbdt.tree.classes[int(want)]} // Decisions: "),
+          f"(f) the decision line disagrees with the model's NBDT argmax {int(want)}")
+    original = prediction(load_backbone("wrn28_10_cifar10", "CIFAR10", str(cache / name)), x,
+                          "CIFAR10")
+    print(f"[export] (f) nbdt-original: Prediction: {original}", flush=True)
+    check(original == classes[int(logits.argmax(1))],
+          f"(f) nbdt-original predicted {original}, the backbone {int(logits.argmax(1))}")
+    rec = {"decision_line": line, "original": original,
+           "pil": importlib.util.find_spec("PIL") is not None}
+    if not rec["pil"]:
+        print("[export] (f) no PIL on this machine: the image decode of the two CLIs is held "
+              "on the CPU only (tests/test_torch_cli.py)", flush=True)
+        return rec
+    # PIL is here: both CLIs end to end on a seeded PNG, the decision line
+    # equal to the builder's on the CLI's own preprocessing
+    from PIL import Image
+
+    from nbdt_torch.bin.nbdt import main as nbdt_main
+    from nbdt_torch.bin.nbdt import preprocess
+    from nbdt_torch.bin.original import main as original_main
+    from nbdt_torch.utils import load_image_from_path
+
+    png = workdir / "image.png"
+    pixels = torch.randint(0, 256, (40, 48, 3), dtype=torch.uint8, generator=torch.Generator()
+                           .manual_seed(52)).numpy()
+    Image.fromarray(pixels).save(png)
+    buf = io.StringIO()
+    with release_cache(cache), contextlib.redirect_stdout(buf):
+        nbdt_main([str(png)])
+        original_main([str(png), "--checkpoint", str(cache / name)])
+    cli_line, cli_original = buf.getvalue().strip().splitlines()
+    x = preprocess(load_image_from_path(str(png)))
+    print(f"[export] (f) PIL is on this machine: python -m nbdt_torch.bin.nbdt image.png: "
+          f"{cli_line}; nbdt_torch.bin.original: {cli_original}", flush=True)
+    check(cli_line == decision_line(nbdt, x), "(f) the nbdt CLI's line differs from the builder's")
+    with torch.no_grad():
+        png_logits = model(torch.as_tensor(x, device="cuda").permute(0, 3, 1, 2))
+    check(cli_original == f"Prediction: {classes[int(png_logits.argmax(1))]}",
+          f"(f) nbdt-original printed {cli_original!r}")
+    rec.update({"cli_decision_line": cli_line, "cli_original": cli_original})
+    return rec
+
+
+def run_export_path(workdir: Path) -> dict:
+    """The export path (ROADMAP A12): (a)-(d) on the main path's ResNet18
+    (CIFAR10 induced tree, 32px), (e)-(f) on a seeded WRN-28-10 for CIFAR10
+    written to a .pth, each artifact under ``workdir``. Returns each
+    phase's record and the kernel launches (none expected: the serving fns
+    and artifacts run the plain rules, the CLIs forward_with_decisions)."""
+    if workdir.exists():
+        shutil.rmtree(workdir)
+    workdir.mkdir(parents=True)
+    tree = Tree("CIFAR10")
+    model = seeded_resnet18(torch.Generator(device="cuda").manual_seed(1))
+    cgen = torch.Generator(device="cuda").manual_seed(40)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {"flagship": export_flagship(model, tree, workdir, cgen),
+           "exact": export_exactness(model, tree, workdir, cgen),
+           "aot": export_aot(model, tree, cgen)}
+    del model
+    wrn = seeded_wrn_cifar10()
+    pth = workdir / "wrn28_10_cifar10_seeded.pth"
+    torch.save({k: v.cpu() for k, v in wrn.state_dict().items()}, pth)
+    out["cli"] = export_cli(wrn, Tree("CIFAR10", hierarchy="induced-wrn28_10_cifar10"),
+                            workdir, pth, cgen)
+    out["pretrained"] = export_pretrained(wrn, pth, workdir, cgen)
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    print(f"[export] kernel launches over the export path: {json.dumps(out['launches'])}",
+          flush=True)
+    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"export path launches {out['launches']}")
+    del wrn
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_path_head(feats: torch.Tensor, hc: st.HeadConstants, label: str) -> dict:
     """B1 on a path's own features and classifier (f32 W): the kernel, its
     plain version and, as a yardstick for the classifier alone,
@@ -2029,6 +2384,10 @@ def main() -> int:
                        Path(__file__).resolve().parent / "build" / "chip_smoke_zoo")
     zoo["seconds"] = time.perf_counter() - t0
     print(f"[zoo] the zoo path took {zoo['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    export = run_export_path(Path(__file__).resolve().parent / "build" / "chip_smoke_export")
+    export["seconds"] = time.perf_counter() - t0
+    print(f"[export] the export path took {export['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -2074,6 +2433,7 @@ def main() -> int:
                    if name not in ("cli", "every_name")},
                 "every_name": zoo["paths"]["every_name"], "cli": zoo["paths"]["cli"],
                 "seconds": zoo["seconds"]},
+        "export": export,
         "card": smi}}), flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2157,6 +2517,7 @@ def main() -> int:
         "launches_on_training_path": train["launches"]["soft_head"],
         "launches_on_wrn_training_path": wrn_train["launches"]["soft_head"],
         "launches_on_zero_shot_path": zero_shot["launches"]["soft_head"],
+        "launches_on_export_path": export["launches"]["soft_head"],
         "instance_by_shape": {"resnet18": head_resnet[f32]["instance"],
                               "vit_b16": head_vit[f32]["instance"],
                               "cifar100_d2048": head_wide[f32]["instance"],
@@ -2183,6 +2544,7 @@ def main() -> int:
         "launches": vit["launches"]["layernorm"],
         "launches_on_training_path": train["launches"]["layernorm"],
         "launches_on_zero_shot_path": zero_shot["launches"]["layernorm"],
+        "launches_on_export_path": export["launches"]["layernorm"],
         "max_abs_err": ln_err[f32],
         "ms": ln_t[f32]["ms"],
         "plain_ms": ln_t[f32]["plain_ms"],
@@ -2203,6 +2565,7 @@ def main() -> int:
         "launches": conv_probe["launches"]["conv3x3"],
         "launches_on_training_path": train["launches"]["conv3x3"],
         "launches_on_zero_shot_path": zero_shot["launches"]["conv3x3"],
+        "launches_on_export_path": export["launches"]["conv3x3"],
         "max_abs_err": conv_err,
         "ms": conv_t["kernel"]["ms"],
         "plain_ms": conv_t["plain"]["ms"],

@@ -16,14 +16,19 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
   analysis    the --analysis plugins, the zero-shot Superclass pair too
   data/       CIFAR, ImageNet-folder and synthetic datasets, label-subset
               wrappers, batch transforms, loaders
-  trainer     TrainConfig, Trainer; main is the training CLI; bin/ holds
-              the hierarchy and wnid CLIs
-  models      CIFAR ResNets and ViT-B/16, ViT-S/16 (NCHW), BN folding,
-              flax -> torch converter, get_model
+  trainer     TrainConfig, Trainer; main is the training CLI
+  models      the backbones of the JAX registry (NCHW), BN folding, the
+              flax -> torch converter, get_model; models.utils: released
+              checkpoints through a local cache
+  serialization  a pure-Python reader of the JAX package's .msgpack
+              checkpoints
   ops         hand-written CUDA kernels (csrc/: soft head, LayerNorm) beside
               their plain versions
-  model       NBDT / SoftNBDT / HardNBDT wrappers (NHWC input)
-  serving     make_serving_fn
+  model       NBDT / SoftNBDT / HardNBDT wrappers (NHWC input), model_urls
+  serving     make_serving_fn; export_serving / load_serving (torch.export
+              artifacts) and aot_compile (torch.compile)
+  bin/        the CLIs: nbdt, original, nbdt_export, nbdt_hierarchy,
+              nbdt_wnids
 """
 
 __version__ = "0.1.0"
@@ -36,5 +41,5 @@ from .rules import (
     SoftEmbeddedDecisionRules,
     to_device_tree,
 )
-from .model import NBDT, HardNBDT, SoftNBDT, TaggedOutput
-from .serving import make_serving_fn
+from .model import NBDT, HardNBDT, SoftNBDT, TaggedOutput, model_urls
+from .serving import aot_compile, export_serving, load_serving, make_serving_fn

@@ -8,10 +8,11 @@ the JAX CLI has ``--platform``:
         --mini-corpus nbdt_tpu/hierarchies/CIFAR10/graph-wordnet.json \
         --hierarchies-root out/hierarchies
 
-The induced method takes its class centers from a torch ``.pth``
-(``--checkpoint``) or from ``--arch`` at a seeded random init, built on
-``--device`` (CUDA unless ``--device cpu``). Nothing is downloaded: offline,
-``--mini-corpus`` stands in for the NLTK WordNet corpus.
+The induced method takes its class centers from a torch ``.pth`` or the JAX
+package's ``.msgpack`` (``--checkpoint``) or from ``--arch`` at a seeded
+random init, built on ``--device`` (CUDA unless ``--device cpu``). Nothing
+is downloaded: offline, ``--mini-corpus`` stands in for the NLTK WordNet
+corpus.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ builds an induced, WordNet or random hierarchy, prunes and augments it and
 writes the reference's node-link JSON. Induced centers are the rows of a
 classifier, taken from a torch module (the first ``nn.Linear`` or 1x1
 ``nn.Conv2d`` among :data:`CLASSIFIER_NAMES`), a state dict, a local
-``.pth``, or given as an array.
+``.pth`` or the JAX package's ``.msgpack``, or given as an array.
 """
 
 from __future__ import annotations
@@ -94,13 +94,45 @@ def get_centers_from_state_dict(state_dict) -> Optional[np.ndarray]:
     return None
 
 
+def get_classifier_from_flax_params(params):
+    """The classifier of a flax variables (or params) tree, as the JAX
+    package's probe finds it: the first top-level module named ``linear``,
+    ``fc``, ``classifier``, ``head`` or ``output`` with a ``kernel``, as
+    ``(kernel [D, C], bias [C] or None)`` (a SqueezeNet's ``[1, 1, D, C]``
+    conv kernel reshaped to ``[D, C]``); ``(None, None)`` if there is none."""
+    if params is None:
+        return None, None
+    tree = params.get("params", params) if isinstance(params, dict) else params
+    for name in ("linear", "fc", "classifier", "head", "output"):
+        sub = tree.get(name) if isinstance(tree, dict) else None
+        if isinstance(sub, dict) and "kernel" in sub:
+            kernel = np.asarray(sub["kernel"])
+            if kernel.ndim == 4:
+                kernel = kernel.reshape(kernel.shape[-2], kernel.shape[-1])
+            bias = sub.get("bias")
+            return kernel, None if bias is None else np.asarray(bias)
+    return None, None
+
+
+def get_centers_from_flax_params(params) -> Optional[np.ndarray]:
+    """The classifier's class embeddings ``[C, D]`` of a flax tree (the
+    transposed ``[D, C]`` kernel), or None."""
+    kernel, _ = get_classifier_from_flax_params(params)
+    return None if kernel is None else kernel.T
+
+
 def get_centers_from_checkpoint(checkpoint: str) -> np.ndarray:
-    """The classifier weight ``[C, D]`` of a local torch ``.pth``. The JAX
-    package's ``.msgpack`` checkpoints are not read yet (ROADMAP A12)."""
+    """The classifier weight ``[C, D]`` of a local torch ``.pth`` or of the
+    JAX package's ``.msgpack`` (read by :mod:`nbdt_torch.serialization`)."""
     if str(checkpoint).endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{checkpoint}: reading the JAX package's .msgpack checkpoints is not ported to "
-            "nbdt_torch yet (ROADMAP A12); pass a torch .pth")
+        from ..serialization import read_msgpack
+
+        variables = read_msgpack(checkpoint)
+        fc = get_centers_from_flax_params(variables)
+        if fc is None:
+            raise ValueError(f"No classifier kernel found in flax checkpoint {checkpoint} "
+                             f"(top-level keys: {list(variables)[:10]})")
+        return fc
     from ..model import load_checkpoint
 
     state_dict = load_checkpoint(checkpoint)

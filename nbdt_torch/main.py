@@ -65,10 +65,13 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--path-resume", default="")
     parser.add_argument("--eval", action="store_true")
     parser.add_argument("--pretrained", action="store_true",
-                        help="start from a released reference checkpoint: only a local "
-                             "--checkpoint-path (downloads are A12)")
+                        help="start from the released reference checkpoint of (arch, "
+                             "dataset[, hierarchy]), read from the local cache "
+                             "($NBDT_CHECKPOINT_DIR) and fetched only when missing, or "
+                             "from --checkpoint-path")
     parser.add_argument("--checkpoint-path", default=None,
-                        help="local reference .pth loaded strictly into the backbone")
+                        help="local reference .pth, or the JAX package's .msgpack, loaded "
+                             "strictly into the backbone")
     parser.add_argument("--name", default="")
     parser.add_argument("--data-root", default="./data")
     parser.add_argument("--download", action="store_true",
@@ -149,10 +152,6 @@ def refuse_not_ported(args) -> None:
     if args.analysis in ANALYZERS_NOT_PORTED:
         raise SystemExit(f"error: --analysis {args.analysis} is not ported to nbdt_torch yet "
                          f"(ROADMAP {ANALYZERS_NOT_PORTED[args.analysis]})")
-    if args.pretrained and not args.checkpoint_path:
-        raise SystemExit("error: --pretrained downloads a released checkpoint, and nbdt_torch "
-                         "downloads nothing: pass the local file to --checkpoint-path "
-                         "(downloads are ROADMAP A12)")
     if args.checkpoint_backend == "orbax":
         raise SystemExit("error: --checkpoint-backend orbax is not ported to nbdt_torch yet "
                          "(ROADMAP A13)")
@@ -242,7 +241,7 @@ def main(argv=None):
     import torch
 
     from .data import DataLoader, PrefetchLoader
-    from .model import load_checkpoint
+    from .model import load_checkpoint, pretrained_checkpoint
     from .models import get_model
     from .trainer import TrainConfig, Trainer
     from .tree import Tree
@@ -264,10 +263,19 @@ def main(argv=None):
                              f"{args.arch}")
         source, model = model, model.clone(bn_impl=args.bn_impl)
         model.load_state_dict(source.state_dict())
-    if args.checkpoint_path:
-        model.load_state_dict(load_checkpoint(args.checkpoint_path), strict=True)
+    if args.pretrained or args.checkpoint_path:
+        # The plain-backbone tables overwrite the NBDT table on the (arch,
+        # dataset) key, as in the JAX CLI; a hierarchy's key exists only in
+        # the NBDT table and wins when present.
+        from .model import model_urls as nbdt_urls
+        from .models import resnet, wideresnet
+
+        urls = {**nbdt_urls, **wideresnet.model_urls, **resnet.model_urls}
+        path = pretrained_checkpoint(args.arch, args.dataset, args.hierarchy,
+                                     args.checkpoint_path, urls)
+        model.load_state_dict(load_checkpoint(path, arch=args.arch), strict=True)
         Colors.green(f"==> Loaded pretrained weights for {args.arch}/{args.dataset} from "
-                     f"{args.checkpoint_path}")
+                     f"{path}")
 
     tree = None
     if args.loss != "CrossEntropyLoss" or args.analysis:

@@ -4,6 +4,11 @@ Counterpart of ``nbdt_tpu/model.py``. A wrapper composes a backbone
 ``nn.Module`` (NCHW inside) with embedded decision rules. Public inputs keep
 the JAX package's layout, NHWC ``[B, H, W, 3]``; the wrapper permutes once at
 the entry, which hands the backbone a channels-last tensor.
+
+``pretrained=True`` loads the released checkpoint of ``(arch, dataset[,
+hierarchy])`` from ``model_urls`` through the local cache
+(:mod:`nbdt_torch.models.utils`), or ``checkpoint_path``: a torch ``.pth``
+or the JAX package's ``.msgpack``.
 """
 
 from __future__ import annotations
@@ -15,12 +20,27 @@ import torch
 import torch.nn as nn
 
 from .hierarchy.generate import CLASSIFIER_NAMES, get_classifier_from_module
-from .models.convert import pytorchcv_wrn_keys
+from .models.convert import pytorchcv_wrn_keys, state_dict_from_flax
 from .models.fold import fold_batchnorm
+from .models.utils import cached_checkpoint, load_torch_checkpoint
 from .ops.soft_traversal import fused_soft_head, prepare_head_constants
 from .rules import HardEmbeddedDecisionRules, SoftEmbeddedDecisionRules
+from .serialization import read_msgpack
 from .tree import Tree, dataset_to_dummy_classes
 from .utils import DATASET_TO_CLASSES, DATASET_TO_NUM_CLASSES, resolve_device
+
+# Released NBDT checkpoints (the JAX package's table, ``nbdt_tpu/model.py``),
+# fetched into the local cache only when a file is not there yet.
+_RELEASES = "https://github.com/alvinwan/neural-backed-decision-trees/releases/download/0.0.1"
+model_urls = {
+    ("ResNet18", "CIFAR10"): f"{_RELEASES}/ckpt-CIFAR10-ResNet18-induced-ResNet18-SoftTreeSupLoss.pth",
+    ("wrn28_10_cifar10", "CIFAR10"): f"{_RELEASES}/ckpt-CIFAR10-wrn28_10_cifar10-induced-wrn28_10_cifar10-SoftTreeSupLoss.pth",
+    ("wrn28_10_cifar10", "CIFAR10", "wordnet"): f"{_RELEASES}/ckpt-CIFAR10-wrn28_10_cifar10-wordnet-SoftTreeSupLoss.pth",
+    ("ResNet18", "CIFAR100"): f"{_RELEASES}/ckpt-CIFAR100-ResNet18-induced-ResNet18-SoftTreeSupLoss.pth",
+    ("wrn28_10_cifar100", "CIFAR100"): f"{_RELEASES}/ckpt-CIFAR100-wrn28_10_cifar100-induced-wrn28_10_cifar100-SoftTreeSupLoss.pth",
+    ("ResNet18", "TinyImagenet200"): f"{_RELEASES}/ckpt-TinyImagenet200-ResNet18-induced-ResNet18-SoftTreeSupLoss-tsw10.0.pth",
+    ("wrn28_10", "TinyImagenet200"): f"{_RELEASES}/ckpt-TinyImagenet200-wrn28_10-induced-wrn28_10-SoftTreeSupLoss-tsw10.0.pth",
+}
 
 
 class TaggedOutput(torch.Tensor):
@@ -40,25 +60,26 @@ class TaggedOutput(torch.Tensor):
 AUX_PREFIXES = ("aux1.", "aux2.", "AuxLogits.")
 
 
-def load_checkpoint(path) -> dict:
-    """A reference-keyed state dict from a local torch ``.pth`` file
-    (``net``/``state_dict`` wrapping and ``module.`` prefixes removed; a
-    WRN's keys in pytorchcv's grammar, whichever of the two it was saved
-    in; a GoogLeNet's or Inception v3's auxiliary heads dropped, with a
-    warning that torchvision's pretrained loaders build those models with
-    ``transform_input=True``)."""
+def load_checkpoint(path, arch: Optional[str] = None) -> dict:
+    """A reference-keyed state dict from a local checkpoint: a torch
+    ``.pth``/``.pt`` (``net``/``state_dict`` wrapping and ``module.``
+    prefixes removed; a WRN's keys in pytorchcv's grammar, whichever of the
+    two it was saved in; a GoogLeNet's or Inception v3's auxiliary heads
+    dropped, with a warning that torchvision's pretrained loaders build
+    those models with ``transform_input=True``), or the JAX package's
+    ``.msgpack`` (``{"params", "batch_stats"}``), converted for ``arch``
+    by :func:`~nbdt_torch.models.convert.state_dict_from_flax`."""
     path = str(path)
+    if path.endswith(".msgpack"):
+        if arch is None:
+            raise ValueError(f"{path}: a .msgpack checkpoint holds flax variables; pass arch= "
+                             "to map them onto the port's module")
+        return state_dict_from_flax(read_msgpack(path), arch)
     if not path.endswith((".pth", ".pt")):
         raise ValueError(
-            f"nbdt_torch loads pretrained weights from a local torch .pth "
-            f"checkpoint only, not {path!r}"
+            f"nbdt_torch loads a local torch .pth or the JAX package's .msgpack, not {path!r}"
         )
-    data = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("net", "state_dict"):
-        if isinstance(data, dict) and isinstance(data.get(key), dict):
-            data = data[key]
-    data = {(k[len("module."):] if k.startswith("module.") else k): v
-            for k, v in data.items()}
+    data = load_torch_checkpoint(path)
     if any(k.startswith("features.init_block.") for k in data):
         data = pytorchcv_wrn_keys(data)
     if any(k.startswith(("inception3a.", "Mixed_5b.")) for k in data):
@@ -69,6 +90,17 @@ def load_checkpoint(path) -> dict:
             stacklevel=2)
         data = {k: v for k, v in data.items() if not k.startswith(AUX_PREFIXES)}
     return data
+
+
+def pretrained_checkpoint(arch: str, dataset: Optional[str], hierarchy: Optional[str] = None,
+                          checkpoint_path: Optional[str] = None, urls: Optional[dict] = None):
+    """``checkpoint_path`` if given, else the cached file of the released
+    checkpoint keyed ``(arch, dataset)`` or ``(arch, dataset, hierarchy)``
+    in ``urls`` (:data:`model_urls` by default; the last key found wins)."""
+    if checkpoint_path:
+        return checkpoint_path
+    keys = [(arch, dataset), (arch, dataset, hierarchy)]
+    return cached_checkpoint(keys, model_urls if urls is None else urls)
 
 
 class NBDT:
@@ -103,12 +135,8 @@ class NBDT:
                 "To load a pretrained NBDT, specify the `arch` (e.g. ResNet18)."
             )
         if pretrained:
-            if not checkpoint_path:
-                raise ValueError(
-                    "nbdt_torch cannot download checkpoints; pass "
-                    "checkpoint_path= to a local .pth file"
-                )
-            model.load_state_dict(load_checkpoint(checkpoint_path), strict=True)
+            path = pretrained_checkpoint(arch, dataset, hierarchy, checkpoint_path)
+            model.load_state_dict(load_checkpoint(path, arch=arch), strict=True)
 
         self.device = resolve_device(device)
         if classes is None and dataset and tree is None:

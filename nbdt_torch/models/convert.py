@@ -26,6 +26,10 @@ of each family's module names (a SqueezeNet's conv classifier keeps its
 collapsed head, which has no torchvision form and which the JAX exporter
 refuses: its classifier maps to the port's own ``classifier.weight`` and
 ``classifier.bias``.
+
+``python -m nbdt_torch.models.convert ckpt.msgpack --arch A --out ckpt.pth``
+converts a JAX checkpoint file, read without flax
+(:mod:`nbdt_torch.serialization`).
 """
 
 from __future__ import annotations
@@ -386,3 +390,35 @@ def _zoo_state_dict(params, stats, rename: Rename) -> Dict[str, np.ndarray]:
 
     walk(params, stats, ())
     return out
+
+
+def main(argv=None):
+    """Checkpoint conversion CLI, flax -> torch:
+
+        python -m nbdt_torch.models.convert ckpt.msgpack --arch ResNet18 --out ckpt.pth
+
+    reads the JAX trainer's ``.msgpack`` (``{"params", "batch_stats"}``)
+    and writes ``{"net": state_dict}``, which the port's module of
+    ``--arch`` loads strictly. The torch -> flax direction (``--out
+    ckpt.msgpack``) needs a msgpack writer and is not ported yet."""
+    import argparse
+
+    from ..serialization import read_msgpack
+
+    parser = argparse.ArgumentParser(description=main.__doc__.split("\n\n")[0])
+    parser.add_argument("input")
+    parser.add_argument("--arch", required=True)
+    parser.add_argument("--out", required=True)
+    args = parser.parse_args(argv)
+
+    if args.out.endswith(".msgpack"):
+        raise SystemExit("error: torch -> flax conversion is not ported to nbdt_torch yet "
+                         "(ROADMAP A17); use python -m nbdt_tpu.models.convert")
+    if not args.out.endswith(".pth"):
+        parser.error("--out must end in .pth (flax -> torch)")
+    torch.save({"net": state_dict_from_flax(read_msgpack(args.input), args.arch)}, args.out)
+    print(f"==> Wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

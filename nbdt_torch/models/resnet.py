@@ -34,6 +34,18 @@ import torch.nn.functional as F
 
 BN_IMPLS = ("f32", "bf16")
 
+# Released plain-backbone checkpoints (the JAX package's table): what the
+# CLI's ``--pretrained`` takes before the NBDT-trained ones of
+# ``nbdt_torch.model.model_urls``.
+_RELEASES = "https://github.com/alvinwan/neural-backed-decision-trees/releases/download/0.0.1"
+model_urls = {
+    ("ResNet10", "CIFAR10"): f"{_RELEASES}/ckpt-CIFAR10-ResNet10.pth",
+    ("ResNet10", "CIFAR100"): f"{_RELEASES}/ckpt-CIFAR100-ResNet10.pth",
+    ("ResNet18", "CIFAR10"): f"{_RELEASES}/ckpt-CIFAR10-ResNet18.pth",
+    ("ResNet18", "CIFAR100"): f"{_RELEASES}/ckpt-CIFAR100-ResNet18.pth",
+    ("ResNet18", "TinyImagenet200"): f"{_RELEASES}/ckpt-TinyImagenet200-ResNet18.pth",
+}
+
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return conv(x.to(conv.weight.dtype))

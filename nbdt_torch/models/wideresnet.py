@@ -34,8 +34,7 @@ from .resnet import _check_bn_impl, _conv, _norm
 __all__ = ("PreResBlock", "WRN", "wrn28_10", "wrn28_10_cifar10", "wrn28_10_cifar100",
            "model_urls")
 
-# Released plain-backbone checkpoint (the JAX package's table; the port
-# downloads nothing: pass the local file to --checkpoint-path).
+# Released plain-backbone checkpoint (the JAX package's table).
 model_urls = {
     ("wrn28_10", "TinyImagenet200"):
         "https://github.com/alvinwan/neural-backed-decision-trees/releases/"

@@ -14,7 +14,9 @@ programs over the static :class:`~nbdt_torch.tree.TreeArrays` constants:
 Node decisions are exact f32: the node-logit and path-sum matmuls run under
 :func:`exact_f32` in the forward and in the backward (:func:`exact_matmul`),
 so a caller that turned TF32 on for its backbone does not reach them, as
-JAX's ``Precision.HIGHEST`` covers the transposed products too.
+JAX's ``Precision.HIGHEST`` covers the transposed products too. Compiled and
+exported programs get the same guarantee from their callers
+(:mod:`nbdt_torch.serving`).
 """
 
 from __future__ import annotations
@@ -67,7 +69,17 @@ class _ExactMatmul(torch.autograd.Function):
 
 
 def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """2-d f32 ``a @ b`` in full f32, forward and backward."""
+    """2-d f32 ``a @ b`` in full f32, forward and backward.
+
+    While ``torch.compile`` or ``torch.export`` traces it, this is a plain
+    ``a @ b``: a traced graph carries no matmul precision (switching it
+    would cut the graph in pieces, and an exported program would not keep
+    the switch). The caller of a compiled or exported program holds
+    :func:`exact_f32` around the whole call instead, as
+    :func:`nbdt_torch.serving.aot_compile` and
+    :func:`~nbdt_torch.serving.load_serving` do."""
+    if torch.compiler.is_compiling():
+        return a @ b
     return _ExactMatmul.apply(a, b)
 
 

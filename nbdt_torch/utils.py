@@ -158,6 +158,25 @@ def progress_bar(current: int, total: int, msg: str = "", width: int = 40):
         _bar_state["last"] = None
 
 
+def load_image_from_path(path):
+    """A PIL image from a local path or an http(s) URL. PIL (the ``pillow``
+    package) is imported here, not with the module: only the image CLIs
+    need it."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("load_image_from_path needs PIL (the pillow package) to decode "
+                          "images; it is not installed") from e
+    if isinstance(path, str) and path.startswith(("http://", "https://")):
+        import io
+        from urllib.request import Request, urlopen
+
+        headers = {"User-Agent": "Mozilla/5.0 (compatible; nbdt-torch)"}
+        with urlopen(Request(path, headers=headers)) as response:
+            path = io.BytesIO(response.read())
+    return Image.open(path)
+
+
 def generate_checkpoint_fname(
     dataset,
     arch,

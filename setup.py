@@ -32,6 +32,9 @@ setup(
             "nbdt-wnids=nbdt_tpu.bin.nbdt_wnids:main",
             "nbdt-original=nbdt_tpu.bin.original:main",
             "nbdt-export=nbdt_tpu.bin.nbdt_export:main",
+            "nbdt-torch=nbdt_torch.bin.nbdt:main",
+            "nbdt-torch-original=nbdt_torch.bin.original:main",
+            "nbdt-torch-export=nbdt_torch.bin.nbdt_export:main",
         ]
     },
 )

@@ -457,7 +457,8 @@ def test_cli_trains_and_evaluates_wrn_on_tinyimagenet(tmp_path, monkeypatch, cap
     TinyImagenet200 data, a tiny WRN on the vendored induced-wrn28_10 tree,
     HardTreeSupLoss with the HardEmbeddedDecisionRules analyzer for one
     epoch, then --eval of the .pth it wrote with SoftEmbeddedDecisionRules.
-    --pretrained alone exits: the port downloads nothing."""
+    --pretrained alone looks the arch up in the released-checkpoint tables,
+    which hold no such arch."""
     import nbdt_torch.main as tmain
     import nbdt_torch.models as tmodels
 
@@ -477,5 +478,5 @@ def test_cli_trains_and_evaluates_wrn_on_tinyimagenet(tmp_path, monkeypatch, cap
     out = capsys.readouterr().out
     assert "Loaded pretrained weights" in out and 0 <= acc <= 100
     assert re.search(r"\[NBDT-Soft\] Accuracy: [\d.]+%, \d+/16 ", out)
-    with pytest.raises(SystemExit, match="downloads nothing.*ROADMAP A12"):
+    with pytest.raises(KeyError, match="No pretrained checkpoint"):
         tmain.main(base + ["--pretrained"])

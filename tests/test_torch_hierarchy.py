@@ -402,9 +402,6 @@ def test_nbdt_hierarchy_cli_matches_jax(tmp_path, method):
 def test_nbdt_hierarchy_cli_refuses_what_it_cannot_do(tmp_path):
     from nbdt_torch.bin.nbdt_hierarchy import main
 
-    with pytest.raises(SystemExit):  # a .msgpack checkpoint is ROADMAP A12
-        main(["--method", "induced", "--checkpoint", str(tmp_path / "x.msgpack"),
-              "--hierarchies-root", str(tmp_path), "--no-vis"])
     with pytest.raises(SystemExit, match="--arch or --checkpoint"):
         main(["--method", "induced", "--no-vis", "--hierarchies-root", str(tmp_path)])
     with pytest.raises(SystemExit):  # a vendored graph is not overwritten

@@ -83,21 +83,33 @@ def test_serving_fn_folded_matches_plain(setup):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_pretrained_loads_local_checkpoint_only(setup, tmp_path):
+def test_pretrained_loads_local_checkpoint_only(setup, tmp_path, monkeypatch):
+    """pretrained=True reads local files only here: a torch .pth, the JAX
+    package's .msgpack of the same weights, or the released file that the
+    table names in the checkpoint cache; a key no table holds raises
+    before any fetch."""
+    import flax.serialization
+
     from nbdt_torch import SoftNBDT
     from nbdt_torch.models import ResNet10
 
-    _, _, port, _, ttree, x = setup
+    _, variables, port, _, ttree, x = setup
     path = tmp_path / "ckpt.pth"
     torch.save({"net": {f"module.{k}": v for k, v in port.state_dict().items()}}, path)
     fresh = SoftNBDT("CIFAR10", ResNet10(10), arch="ResNet10", tree=ttree, pretrained=True,
                      checkpoint_path=str(path), device="cpu")
     want = SoftNBDT("CIFAR10", port, tree=ttree, device="cpu")(x)
     torch.testing.assert_close(fresh(x), want)
-    with pytest.raises(ValueError, match=".pth"):
+    flax_path = tmp_path / "ckpt.msgpack"
+    flax_path.write_bytes(flax.serialization.to_bytes(variables))
+    from_flax = SoftNBDT("CIFAR10", ResNet10(10), arch="ResNet10", tree=ttree, pretrained=True,
+                         checkpoint_path=str(flax_path), device="cpu")
+    torch.testing.assert_close(from_flax(x), want)
+    with pytest.raises(ValueError, match=".msgpack"):
         SoftNBDT("CIFAR10", ResNet10(10), arch="ResNet10", tree=ttree, pretrained=True,
-                 checkpoint_path=str(tmp_path / "ckpt.msgpack"), device="cpu")
-    with pytest.raises(ValueError, match="checkpoint_path"):
+                 checkpoint_path=str(tmp_path / "ckpt.ckpt"), device="cpu")
+    monkeypatch.setenv("NBDT_CHECKPOINT_DIR", str(tmp_path / "cache"))
+    with pytest.raises(KeyError, match="No pretrained checkpoint"):
         SoftNBDT("CIFAR10", ResNet10(10), arch="ResNet10", tree=ttree, pretrained=True,
                  device="cpu")
     with pytest.raises(AssertionError, match="pick one"):

@@ -194,6 +194,8 @@ def test_port_imports_nothing_of_jax():
         "import nbdt_torch.hierarchy.generate\n"
         "import nbdt_torch.models.wideresnet, nbdt_torch.data.imagenet, nbdt_torch.analysis\n"
         "import nbdt_torch.models.efficientnet, nbdt_torch.models.resnet\n"
+        "import nbdt_torch.serialization, nbdt_torch.models.utils, nbdt_torch.models.convert\n"
+        "import nbdt_torch.bin.nbdt, nbdt_torch.bin.original, nbdt_torch.bin.nbdt_export\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
