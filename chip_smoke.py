@@ -34,7 +34,12 @@ process with torch alone, its tree products exact under a caller's "medium"
 precision; ``aot_compile`` at batch 8192 as one graph; the ``nbdt_export``
 CLI on a seeded WRN-28-10 at 1024; that WRN found in the checkpoint cache
 under its released name by the ``nbdt`` CLI's builder, with the decision
-line and ``nbdt-original``'s prediction). Builds every
+line and ``nbdt-original``'s prediction), and the parallel path (the training
+path's ResNet18 at batch 512 on a one-rank NCCL mesh beside the plain
+trainer, under ZeRO-1, through a ``.dcp`` directory checkpoint; two ranks
+sharing the card over gloo against the plain trainer on the same global
+batches, with ``shard_serving`` of the flagship serving fn at 8192; a
+``--profile`` trace; the CLI's ``--mesh --zero``). Builds every
 hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
 PyTorch version, checks each path's launch counts and outputs, and times the
 kernels and requests with CUDA events. Exits nonzero, printing no result,
@@ -47,7 +52,7 @@ layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
 its f32 gate, its serving fn, the conv probe path (one request, then the
 probe's parity and timing phases), the training path, the WRN-28-10 serving
 and training path, the zero-shot path, the ImageNet path, the zoo path, the
-export path, times.
+export path, the parallel path, times.
 """
 
 from __future__ import annotations
@@ -234,6 +239,25 @@ ZOO_NAMES = ("mobilenet_v2", "densenet121", "densenet161", "densenet169", "dense
 EXPORT_BATCHES = (1, 7, BATCH)
 EXPORT_EXACT_BATCH = 1024
 EXPORT_TOL = 1e-6
+# Parallel path (ROADMAP A13): config #2 at full width, cached, batch 512.
+# (a)-(b) compare one epoch of TRAIN_SIZE and time the second of two; (d)
+# two ranks on the one card take 256 rows each of PAR_STEPS global steps
+# (PAR_STEPS * 512 images: one epoch); (e) traces 3 steps. The comparisons
+# run with cuDNN's deterministic algorithms: with its default ones, two runs
+# of the plain trainer part step by step (the (a) line prints how far),
+# which no gate on the mesh could tell from its own error. Losses
+# within PAR_RTOL of the plain trainer's (at one rank DDP and the cross-rank
+# BatchNorm add no arithmetic; two ranks sum the gradient in two halves);
+# running statistics within PAR_STATS_TOL after (d)'s first step. After more
+# steps they are not gated: a ResNet's f32 gradient parts from its f64 value
+# by a few tenths of a percent of its largest element, in one process as in
+# two (tests/test_torch_parallel.py measures both on the CPU), and the
+# updates carry that difference into the statistics.
+PAR_STEPS = 4
+PAR_RTOL = 1e-4
+PAR_STATS_TOL = 1e-5
+PAR_PROFILE_STEPS = 3
+PAR_DEADLINE = 300  # seconds for (d)'s pair; a rank that dies kills its sibling
 
 
 def check(ok: bool, msg: str) -> None:
@@ -2190,6 +2214,368 @@ def run_export_path(workdir: Path) -> dict:
     return out
 
 
+# (d)'s worker: one of two ranks sharing the card over gloo (NCCL refuses
+# two ranks on one device). It imports torch and nbdt_torch only.
+PAR_WORKER = r"""
+import json, sys, time
+from pathlib import Path
+workdir, rank = Path(sys.argv[1]), int(sys.argv[2])
+import torch
+import torch.distributed as dist
+from nbdt_torch.data import DataLoader, LearnableSyntheticDataset
+from nbdt_torch.models import ResNet18
+from nbdt_torch.parallel import initialize_multihost, make_mesh
+from nbdt_torch.serving import make_serving_fn, shard_serving
+from nbdt_torch.trainer import TrainConfig, Trainer
+from nbdt_torch.tree import Tree
+
+args = json.loads((workdir / "args.json").read_text())
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True  # (d) is a comparison
+world = initialize_multihost(f"file://{workdir / 'store'}", 2, rank, backend="gloo")
+mesh = make_mesh()
+out = {"world": world, "backend": dist.get_backend(), "device": torch.cuda.current_device()}
+
+
+def model(name):
+    m = ResNet18(10)
+    m.load_state_dict(torch.load(workdir / name, weights_only=True))
+    return m
+
+
+testset = LearnableSyntheticDataset(10, size=args["batch"], seed=0, train=False)
+testloader = DataLoader(testset, args["batch"], transform=testset.transform_val(),
+                        drop_last=False, pad_last=True)
+cfg = TrainConfig(dataset="CIFAR10", arch="ResNet18", batch_size=args["batch"], epochs=2,
+                  loss="SoftTreeSupLoss", cache_dataset=True,
+                  checkpoint_dir=str(workdir / "ckpt"))
+for steps in args["steps"]:  # one epoch of that many global steps
+    trainset = LearnableSyntheticDataset(10, size=steps * args["batch"], seed=0)
+    loader = DataLoader(trainset, args["batch"], shuffle=True,
+                        transform=trainset.transform_train())
+    tr = Trainer(cfg, model("init.pth"), loader, testloader, tree=Tree("CIFAR10"), mesh=mesh)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = tr.train_epoch(0)["step_losses"]
+    end.record()
+    torch.cuda.synchronize()
+    out[f"losses{steps}"] = ["%.17g" % v for v in losses]
+    out["ms_per_step"] = start.elapsed_time(end) / len(losses)
+    torch.save({k: v.cpu() for k, v in tr.model.state_dict().items()},
+               workdir / f"state{steps}_{rank}.pth")
+
+fn = make_serving_fn(model("serve.pth"), Tree("CIFAR10"), bf16=True, fold_bn=True,
+                     uint8_input=True)
+sharded = shard_serving(fn, mesh)
+gen = torch.Generator(device="cuda").manual_seed(args["seed"])
+x = torch.randint(0, 256, (args["serve_batch"], 32, 32, 3), generator=gen, device="cuda",
+                  dtype=torch.uint8)
+live, got = fn(x), sharded(x)
+top2 = live.topk(2, dim=1).values
+decided = (top2[:, 0] - top2[:, 1]) > 1e-4
+same = got.argmax(1) == live.argmax(1)
+out["serving"] = {"shape": list(got.shape), "rows_decided": int(decided.sum()),
+                  "agreement": float(same[decided].float().mean()),
+                  "max_leaf_diff": float((got.float() - live.float()).abs().max())}
+times = []
+for _ in range(4):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded(x)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+out["serving"]["host_ms_per_request"] = sum(times[1:]) / 3
+(workdir / f"rank{rank}.json").write_text(json.dumps(out))
+dist.destroy_process_group()
+"""
+
+
+def launch_pair(workdir: Path) -> list:
+    """Runs PAR_WORKER as ranks 0 and 1; returns their results. Fails when
+    either rank fails or the pair outlives PAR_DEADLINE: a rank that dies
+    leaves its sibling blocked in a collective, so the sibling is killed."""
+    script = workdir / "worker.py"
+    script.write_text(PAR_WORKER)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(Path(__file__).resolve().parent),
+                                                      env.get("PYTHONPATH")]))
+    procs = [subprocess.Popen([sys.executable, str(script), str(workdir), str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(2)]
+    deadline = time.monotonic() + PAR_DEADLINE
+    try:
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate()[0] for p in procs]
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(f"[parallel] rank {r} exited {p.returncode}:\n{out[-4000:]}", flush=True)
+    check(all(p.returncode == 0 for p in procs),
+          f"(d) ranks exited {[p.returncode for p in procs]}")
+    return [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside (for the comparisons)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def timed_train(tr: Trainer, epochs: int, label: str) -> tuple:
+    """``epochs`` epochs of ``tr``: every step's loss, and the device ms a
+    step of the last epoch (CUDA events around it)."""
+    losses, ms = [], None
+    for epoch in range(epochs):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_losses = tr.train_epoch(epoch)["step_losses"]
+        end.record()
+        torch.cuda.synchronize()
+        check(len(step_losses) > 0 and all(math.isfinite(v) for v in step_losses),
+              f"{label} epoch {epoch}: step losses {step_losses}")
+        losses += step_losses
+        ms = start.elapsed_time(end) / len(step_losses)
+    return losses, ms
+
+
+def loss_gate(label: str, got: list, want: list) -> float:
+    """Largest relative difference of two step-loss lists, gated at PAR_RTOL."""
+    check(len(got) == len(want), f"{label}: {len(got)} steps against {len(want)}")
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    check(rel <= PAR_RTOL, f"{label}: step losses {got} against {want}")
+    return rel
+
+
+def trace_kernel_events(log_dir: Path) -> tuple:
+    """(CUDA kernel events, all events, bytes) of the one trace in log_dir."""
+    files = list(log_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"(e) traces written: {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    return kernels, len(events), files[0].stat().st_size
+
+
+def run_parallel_path(workdir: Path) -> dict:
+    """The parallel path (ROADMAP A13), config #2 at full width: ResNet18 on
+    CIFAR10-shaped learnable synthetic data, SoftTreeSupLoss on the induced
+    tree, batch 512, f32, TF32 off, cached. (a) ``make_mesh()`` forms a
+    one-rank NCCL group and ``Trainer(mesh=...)`` trains beside ``Trainer()``
+    from the same weights; (b) the same under ZeRO-1; (c) a ``.dcp``
+    directory round trip; (d) two ranks sharing the card over gloo, 256 rows
+    each, against the plain trainer on the same global batches, then
+    ``shard_serving`` of the flagship serving fn at 8192; (e) ``--profile``'s
+    trace; (f) the CLI with ``--mesh --zero --checkpoint-backend orbax``.
+    No kernel launches (training and the serving fn run the plain rules)."""
+    import torch.distributed as dist
+
+    from nbdt_torch.parallel import make_mesh, state_bytes
+    from nbdt_torch.profiling import trace
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    tree = Tree("CIFAR10")
+    trainset = LearnableSyntheticDataset(10, size=TRAIN_SIZE, seed=0)
+    testset = LearnableSyntheticDataset(10, size=TEST_SIZE, seed=0, train=False)
+    testloader = DataLoader(testset, TRAIN_BATCH, transform=testset.transform_val(),
+                            drop_last=False, pad_last=True)
+
+    def loader(ds):
+        return DataLoader(ds, TRAIN_BATCH, shuffle=True, transform=ds.transform_train())
+
+    def config(**kw):
+        return TrainConfig(dataset="CIFAR10", arch="ResNet18", batch_size=TRAIN_BATCH,
+                           epochs=TRAIN_EPOCHS, loss="SoftTreeSupLoss", cache_dataset=True,
+                           checkpoint_dir=str(workdir / "ckpt"), **kw)
+
+    torch.manual_seed(20)
+    init = ResNet18(10)
+    torch.save(init.state_dict(), workdir / "init.pth")
+    torch.save(seeded_resnet18(torch.Generator(device="cuda").manual_seed(60)).cpu()
+               .state_dict(), workdir / "serve.pth")
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {}
+
+    # (a) one rank on NCCL beside the plain trainer, (b) the same under ZeRO-1:
+    # one epoch each compared, then two each timed (the second epoch's steps)
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
+          f"(a) backend {dist.get_backend()}, mesh {tuple(mesh.shape)}")
+    kinds = {"plain": {}, "mesh": {"mesh": mesh}, "zero": {"mesh": mesh, "zero": True}}
+    compared, timed, trainers, default_losses = {}, {}, {}, {}
+    with deterministic_cudnn():
+        for kind, kw in kinds.items():
+            tr = Trainer(config(), init, loader(trainset), testloader, tree=tree, **kw)
+            compared[kind] = timed_train(tr, 1, f"({kind}) compared")[0]
+    for kind, kw in [*kinds.items(), ("plain again", {})]:
+        tr = Trainer(config(), init, loader(trainset), testloader, tree=tree, **kw)
+        default_losses[kind], timed[kind] = timed_train(tr, TRAIN_EPOCHS, f"({kind}) timed")
+        trainers[kind] = tr
+
+    def parting(kind):  # largest relative difference from the plain losses
+        return max(abs(a - b) / abs(b) for a, b in zip(default_losses[kind],
+                                                        default_losses["plain"]))
+    zero_bytes, plain_bytes = (state_bytes(trainers[k].optimizer) for k in ("zero", "plain"))
+    rel = loss_gate("(a) mesh vs plain", compared["mesh"], compared["plain"])
+    out["a"] = {"backend": "nccl", "steps_compared": len(compared["mesh"]),
+                "max_rel_loss_diff": rel, "mesh_device_ms_per_step": timed["mesh"],
+                "plain_device_ms_per_step": timed["plain"],
+                "plain_again_device_ms_per_step": timed["plain again"],
+                "default_cudnn_max_rel_loss_diff": {"plain_again": parting("plain again"),
+                                                    "mesh": parting("mesh")}}
+    print(f"[parallel] (a) one NCCL rank: {len(compared['mesh'])} cached steps at batch "
+          f"{TRAIN_BATCH} with cuDNN deterministic, every loss within {rel:.3g} of the plain "
+          f"trainer's (tolerance {PAR_RTOL}); epoch {TRAIN_EPOCHS - 1} with cuDNN's defaults: "
+          f"mesh {timed['mesh']:.3f} device ms/step, plain {timed['plain']:.3f} and "
+          f"{timed['plain again']:.3f}; over those {2 * len(compared['mesh'])} steps a second "
+          f"plain run parts from the first by up to {parting('plain again'):.3g}, the mesh by "
+          f"{parting('mesh'):.3g}", flush=True)
+    rel = loss_gate("(b) zero vs plain", compared["zero"], compared["plain"])
+    out["b"] = {"max_rel_loss_diff": rel, "device_ms_per_step": timed["zero"],
+                "optimizer_state_bytes": zero_bytes, "plain_optimizer_state_bytes": plain_bytes}
+    print(f"[parallel] (b) ZeRO-1 at one rank: losses within {rel:.3g} of the plain trainer's; "
+          f"{timed['zero']:.3f} device ms/step; optimizer state {zero_bytes} bytes on the rank "
+          f"(plain {plain_bytes})", flush=True)
+
+    # (c) a directory checkpoint, read back by a fresh mesh trainer
+    tr = trainers["mesh"]
+    tr.config.checkpoint_backend = "orbax"
+    path = tr.save(TRAIN_EPOCHS, 0.0)
+    back = Trainer(config(checkpoint_backend="orbax"), ResNet18(10), loader(trainset),
+                   testloader, tree=tree, mesh=mesh)
+    back.load(path)
+    saved, read = tr.model.state_dict(), back.model.state_dict()
+    check(Path(path).is_dir() and all(torch.equal(saved[k], read[k]) for k in saved),
+          f"(c) {path} read back unequal")
+    again = [tr.train_epoch(TRAIN_EPOCHS)["step_losses"][0],
+             back.train_epoch(TRAIN_EPOCHS)["step_losses"][0]]
+    check(abs(again[0] - again[1]) <= PAR_RTOL * abs(again[0]),
+          f"(c) next step's loss {again[1]} after the load, {again[0]} in the saver")
+    files = sorted(f.name for f in Path(path).iterdir())
+    out["c"] = {"path": Path(path).name, "files": files,
+                "bytes": sum(f.stat().st_size for f in Path(path).iterdir()),
+                "next_loss": again}
+    print(f"[parallel] (c) {Path(path).name}: {files}, {out['c']['bytes']} bytes, state dict "
+          f"read back bitwise; next step's loss {again[1]!r} against the saver's "
+          f"{again[0]!r}", flush=True)
+    del back, trainers
+
+    # (d) two ranks on the one card over gloo, against the plain trainer: one
+    # global step (running statistics gated), then PAR_STEPS
+    steps = (1, PAR_STEPS)
+    refs = {}
+    with deterministic_cudnn():
+        for n in steps:
+            ref = Trainer(config(), init,
+                          loader(LearnableSyntheticDataset(10, size=n * TRAIN_BATCH, seed=0)),
+                          testloader, tree=tree)
+            refs[n] = (ref.train_epoch(0)["step_losses"],
+                       {k: v.cpu() for k, v in ref.model.state_dict().items()
+                        if k.endswith(("running_mean", "running_var"))})
+    del ref
+    (workdir / "args.json").write_text(json.dumps(
+        {"steps": steps, "batch": TRAIN_BATCH, "serve_batch": BATCH, "seed": 61}))
+    t0 = time.perf_counter()
+    r0, r1 = launch_pair(workdir)
+    pair_s = time.perf_counter() - t0
+    rels, stats = {}, {}
+    for n in steps:
+        check(r0[f"losses{n}"] == r1[f"losses{n}"],
+              f"(d) rank losses {r0[f'losses{n}']} vs {r1[f'losses{n}']}")
+        rels[n] = loss_gate(f"(d) two ranks vs plain, {n} steps",
+                            [float(v) for v in r0[f"losses{n}"]], refs[n][0])
+        diffs = []  # (largest difference, the statistic's largest magnitude, key, rank)
+        for r in range(2):
+            got = torch.load(workdir / f"state{n}_{r}.pth", weights_only=True)
+            diffs += [(float((got[k] - w).abs().max()), float(w.abs().max()), k, r)
+                      for k, w in refs[n][1].items()]
+        stats[n] = max(diffs)
+    check(stats[1][0] <= PAR_STATS_TOL,
+          f"(d) running statistics after one step differ by up to {stats[1]}")
+    stats_err = stats[1][0]
+    serving = [r["serving"] for r in (r0, r1)]
+    for sv in serving:
+        check(sv["shape"] == [BATCH, 10] and sv["agreement"] == 1.0,
+              f"(d) shard_serving: {sv}")
+    last = r0[f"losses{PAR_STEPS}"]
+    out["d"] = {"backend": r0["backend"], "steps": PAR_STEPS, "losses": last,
+                "max_rel_loss_diff": max(rels.values()),
+                "running_stat_diff_after_1_step": stats_err,
+                f"running_stat_diff_after_{PAR_STEPS}_steps": stats[PAR_STEPS][0],
+                "device_ms_per_step": [r0["ms_per_step"], r1["ms_per_step"]],
+                "serving": serving, "seconds": pair_s}
+    print(f"[parallel] (d) two ranks on one card over {r0['backend']} (devices "
+          f"{r0['device']}, {r1['device']}), {TRAIN_BATCH // 2} rows each: losses bit-identical "
+          f"on both ({', '.join(last)}), within {max(rels.values()):.3g} of the plain "
+          f"trainer's; running statistics after one step within {stats_err:.3g} (tolerance "
+          f"{PAR_STATS_TOL}), after {PAR_STEPS} {stats[PAR_STEPS][0]:.3g} ({stats[PAR_STEPS][2]}, "
+          f"largest |value| {stats[PAR_STEPS][1]:.3g}; not gated, see PAR_STATS_TOL); "
+          f"{r0['ms_per_step']:.3f} and "
+          f"{r1['ms_per_step']:.3f} device ms/step (gloo through the host: no measure of "
+          f"NCCL)", flush=True)
+    print(f"[parallel] (d) shard_serving of the flagship fn (bf16 + fold_bn + uint8) at "
+          f"{BATCH}: argmax agreement {serving[0]['agreement']} on "
+          f"{serving[0]['rows_decided']} decided rows, largest leaf difference "
+          f"{serving[0]['max_leaf_diff']:.3g}; {serving[0]['host_ms_per_request']:.3f} host ms "
+          f"a request; the pair took {pair_s:.1f} s", flush=True)
+
+    # (e) --profile: 3 steps of (a) under the trace
+    small = LearnableSyntheticDataset(10, size=PAR_PROFILE_STEPS * TRAIN_BATCH, seed=0)
+    prof = Trainer(config(), init, loader(small), testloader, tree=tree, mesh=mesh)
+    with trace(str(workdir / "trace")):
+        prof.train_epoch(0)
+        torch.cuda.synchronize()
+    kernels, events, nbytes = trace_kernel_events(workdir / "trace")
+    check(kernels > 0, f"(e) the trace holds no CUDA kernel event ({events} events)")
+    out["e"] = {"steps": PAR_PROFILE_STEPS, "kernel_events": kernels, "events": events,
+                "bytes": nbytes}
+    print(f"[parallel] (e) trace of {PAR_PROFILE_STEPS} mesh steps: {events} events, "
+          f"{kernels} CUDA kernel events, {nbytes} bytes", flush=True)
+    del prof, tr
+
+    # (f) the CLI
+    t0 = time.perf_counter()
+    acc, text = run_cli(["--mesh", "--zero", "--synthetic", "--cache-dataset", "--dataset",
+                         "CIFAR10", "--arch", "ResNet18", "--loss", "SoftTreeSupLoss",
+                         "--epochs", "1", "--batch-size", str(TRAIN_BATCH), "--no-progress",
+                         "--checkpoint-backend", "orbax", "--checkpoint-dir",
+                         str(workdir / "cli")])
+    dcp = sorted(p.name for p in (workdir / "cli").glob("*.dcp") if p.is_dir())
+    check(0 <= acc <= 100 and "==> Best accuracy" in text and dcp,
+          f"(f) CLI: accuracy {acc}, directories {dcp}")
+    out["f"] = {"test_acc": acc, "dcp": dcp, "seconds": time.perf_counter() - t0}
+    print(f"[parallel] (f) python -m nbdt_torch.main --mesh --zero --cache-dataset "
+          f"--checkpoint-backend orbax ...: test accuracy {acc:.2f}%, {dcp}, "
+          f"{out['f']['seconds']:.1f} s", flush=True)
+
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    print(f"[parallel] kernel launches over the parallel path: {json.dumps(out['launches'])}",
+          flush=True)
+    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"parallel path launches {out['launches']}")
+    dist.destroy_process_group()
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_path_head(feats: torch.Tensor, hc: st.HeadConstants, label: str) -> dict:
     """B1 on a path's own features and classifier (f32 W): the kernel, its
     plain version and, as a yardstick for the classifier alone,
@@ -2388,6 +2774,10 @@ def main() -> int:
     export = run_export_path(Path(__file__).resolve().parent / "build" / "chip_smoke_export")
     export["seconds"] = time.perf_counter() - t0
     print(f"[export] the export path took {export['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    parallel = run_parallel_path(Path(__file__).resolve().parent / "build" / "chip_smoke_par")
+    parallel["seconds"] = time.perf_counter() - t0
+    print(f"[parallel] the parallel path took {parallel['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -2434,6 +2824,7 @@ def main() -> int:
                 "every_name": zoo["paths"]["every_name"], "cli": zoo["paths"]["cli"],
                 "seconds": zoo["seconds"]},
         "export": export,
+        "parallel": parallel,
         "card": smi}}), flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2518,6 +2909,7 @@ def main() -> int:
         "launches_on_wrn_training_path": wrn_train["launches"]["soft_head"],
         "launches_on_zero_shot_path": zero_shot["launches"]["soft_head"],
         "launches_on_export_path": export["launches"]["soft_head"],
+        "launches_on_parallel_path": parallel["launches"]["soft_head"],
         "instance_by_shape": {"resnet18": head_resnet[f32]["instance"],
                               "vit_b16": head_vit[f32]["instance"],
                               "cifar100_d2048": head_wide[f32]["instance"],
@@ -2545,6 +2937,7 @@ def main() -> int:
         "launches_on_training_path": train["launches"]["layernorm"],
         "launches_on_zero_shot_path": zero_shot["launches"]["layernorm"],
         "launches_on_export_path": export["launches"]["layernorm"],
+        "launches_on_parallel_path": parallel["launches"]["layernorm"],
         "max_abs_err": ln_err[f32],
         "ms": ln_t[f32]["ms"],
         "plain_ms": ln_t[f32]["plain_ms"],
@@ -2566,6 +2959,7 @@ def main() -> int:
         "launches_on_training_path": train["launches"]["conv3x3"],
         "launches_on_zero_shot_path": zero_shot["launches"]["conv3x3"],
         "launches_on_export_path": export["launches"]["conv3x3"],
+        "launches_on_parallel_path": parallel["launches"]["conv3x3"],
         "max_abs_err": conv_err,
         "ms": conv_t["kernel"]["ms"],
         "plain_ms": conv_t["plain"]["ms"],

@@ -26,7 +26,10 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
               their plain versions
   model       NBDT / SoftNBDT / HardNBDT wrappers (NHWC input), model_urls
   serving     make_serving_fn; export_serving / load_serving (torch.export
-              artifacts) and aot_compile (torch.compile)
+              artifacts), aot_compile (torch.compile) and shard_serving
+  parallel/   the process group, the (dp, tp) DeviceMesh, the cross-rank
+              BatchNorm, ZeRO-1 (DDP training over one process per card)
+  profiling   torch.profiler traces, step annotations, StepTimer
   bin/        the CLIs: nbdt, original, nbdt_export, nbdt_hierarchy,
               nbdt_wnids
 """
@@ -42,4 +45,5 @@ from .rules import (
     to_device_tree,
 )
 from .model import NBDT, HardNBDT, SoftNBDT, TaggedOutput, model_urls
-from .serving import aot_compile, export_serving, load_serving, make_serving_fn
+from .serving import (aot_compile, export_serving, load_serving, make_serving_fn,
+                      shard_serving)

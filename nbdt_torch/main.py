@@ -29,6 +29,12 @@ set in a superclass label space (WordNet offline through a mini-corpus):
         --checkpoint-path ckpt.pth --dataset-test CIFAR100 --disable-test-eval \
         --analysis SuperclassNBDT --superclass-wnids n00015388 n04524313 \
         --mini-corpus corpus.json
+
+Data parallel: ``--mesh`` on one card (a one-rank group), and on N cards one
+process per card, each feeding ``batch_size / N`` rows of the global batch:
+
+    torchrun --nproc-per-node N -m nbdt_torch.main --multihost --zero \
+        --checkpoint-backend orbax ...
 """
 
 from __future__ import annotations
@@ -38,12 +44,7 @@ import os
 
 # Flags whose modules the port does not have yet, and the ROADMAP item that
 # brings each.
-NOT_PORTED = {
-    "mesh": "A13",
-    "zero": "A13",
-    "multihost": "A13",
-    "profile": "A16",
-}
+NOT_PORTED: dict = {}
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -93,7 +94,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-cache-flip", action="store_true",
                         help="cached mode: no random horizontal flip")
     parser.add_argument("--checkpoint-backend", default="pth", choices=("pth", "orbax"),
-                        help="pth: the model's state dict; orbax: not ported yet (A13)")
+                        help="pth: the model's state dict; orbax: a directory checkpoint "
+                             "(.dcp, torch.distributed.checkpoint, written by every rank of "
+                             "a mesh; not orbax's format)")
     # tree
     parser.add_argument("--hierarchy", default=None)
     parser.add_argument("--path-graph", default=None)
@@ -118,7 +121,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save-k", type=int, default=20)
     parser.add_argument("--visualize-decision-node-wnid", "--vdnw", default=None)
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
-    parser.add_argument("--profile", default=None, metavar="DIR", help="not ported yet (A16)")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="trace the training run with torch.profiler into DIR (a "
+                             "*.pt.trace.json for Perfetto or TensorBoard)")
     parser.add_argument("--remat", action="store_true",
                         help="recompute the forward in the backward (memory for FLOPs)")
     parser.add_argument("--bf16", action="store_true",
@@ -127,13 +132,21 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bn-impl", default="auto", choices=["auto", "f32", "bf16"],
                         help="BatchNorm compute dtype (ResNet and WRN): f32, or bf16 (the "
                              "stream dtype); auto takes bf16 at 64px and above")
-    parser.add_argument("--mesh", action="store_true", help="not ported yet (A13)")
-    parser.add_argument("--zero", action="store_true", help="not ported yet (A13)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="data-parallel over the process group's ranks, one device each "
+                             "(DDP, BatchNorm over the global batch); one rank without "
+                             "--multihost")
+    parser.add_argument("--zero", action="store_true",
+                        help="ZeRO-1: the optimizer's momentum partitioned over the ranks "
+                             "(needs --mesh)")
     parser.add_argument("--device-normalize", action="store_true",
                         help="ship raw uint8 batches and normalize on the device")
     parser.add_argument("--no-progress", action="store_true",
                         help="no per-step progress bar (it syncs the device every step)")
-    parser.add_argument("--multihost", action="store_true", help="not ported yet (A13)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the process group (torchrun's variables, or "
+                             "--coordinator-address/--num-processes/--process-id); implies "
+                             "--mesh")
     parser.add_argument("--coordinator-address", default=None)
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
@@ -152,9 +165,6 @@ def refuse_not_ported(args) -> None:
     if args.analysis in ANALYZERS_NOT_PORTED:
         raise SystemExit(f"error: --analysis {args.analysis} is not ported to nbdt_torch yet "
                          f"(ROADMAP {ANALYZERS_NOT_PORTED[args.analysis]})")
-    if args.checkpoint_backend == "orbax":
-        raise SystemExit("error: --checkpoint-backend orbax is not ported to nbdt_torch yet "
-                         "(ROADMAP A13)")
 
 
 def resolve_bn_impl(bn_impl: str, module, image: int) -> str:
@@ -247,7 +257,21 @@ def main(argv=None):
     from .tree import Tree
     from .utils import Colors, default_image_size, hierarchy_to_path_graph, resolve_device
 
+    if args.zero and not (args.mesh or args.multihost):
+        raise SystemExit("error: --zero requires --mesh")
     device = resolve_device(args.device)
+    world, rank = 1, 0
+    if args.multihost:
+        import torch.distributed as dist
+
+        from .parallel import initialize_multihost
+
+        world = initialize_multihost(args.coordinator_address, args.num_processes,
+                                     args.process_id,
+                                     backend="gloo" if device.type == "cpu" else None)
+        rank = dist.get_rank()
+        args.mesh = True
+        print(f"==> multihost: process {rank}/{world}, {world} global devices")
     if args.mini_corpus:
         from .hierarchy.wnid import install_mini_corpus
 
@@ -308,6 +332,7 @@ def main(argv=None):
         path_graph=tree.path_graph if tree else None,
         path_wnids=args.path_wnids,
         checkpoint_dir=args.checkpoint_dir,
+        checkpoint_backend=args.checkpoint_backend,
         cache_dataset=args.cache_dataset,
         cache_crop_pad=args.cache_crop_pad,
         cache_flip=not args.no_cache_flip,
@@ -333,27 +358,36 @@ def main(argv=None):
         device_normalize = (trainset.mean, trainset.std)
         device_normalize_eval = (testset.mean, testset.std)
     dn = {"device_normalize": True} if device_normalize else {}
-    # torch DataLoader semantics: the short last batch trains too
+    # The batch size stays global: each rank loads its disjoint rows. torch
+    # DataLoader semantics: the short last batch trains too, but not on a
+    # mesh, where a short batch need not divide over the ranks.
+    local_bs = max(1, args.batch_size // world)
     trainloader = PrefetchLoader(DataLoader(
-        trainset, args.batch_size, shuffle=True,
+        trainset, local_bs, shuffle=True,
         transform=trainset.transform_train(**dn) if hasattr(trainset, "transform_train")
         else None,
-        drop_last=False))
+        drop_last=args.mesh, num_shards=world, shard_id=rank))
     testloader = DataLoader(
-        testset, args.batch_size, shuffle=False,
+        testset, local_bs, shuffle=False,
         transform=testset.transform_val(**dn) if hasattr(testset, "transform_val") else None,
-        drop_last=False, pad_last=True)
+        drop_last=False, pad_last=True, num_shards=world, shard_id=rank)
     analyzer = build_analyzer(args, tree, testset, device)
     if args.disable_test_eval and args.analysis in (None, "Noop"):
         Colors.red("WARNING: --disable-test-eval turns off the standard test metric; pass "
                    "--analysis to define one.")
+    mesh = None
+    if args.mesh:
+        from .parallel import make_mesh
+
+        mesh = make_mesh(device=device)
+        Colors.cyan(f"==> dp mesh over {mesh.size()} devices")
     trainer = Trainer(
         config, model, trainloader, testloader, tree=tree, analyzer=analyzer,
         show_progress=not args.no_progress,
         device_normalize=device_normalize, device_normalize_eval=device_normalize_eval,
         inverse_transform=testset.transform_val_inverse()
         if hasattr(testset, "transform_val_inverse") else None,
-        device=device,
+        device=device, mesh=mesh, zero=args.zero,
     )
     if args.loss == "SoftTreeLoss":  # regenerate the induced tree from the live model
         from .losses import SoftTreeLoss
@@ -366,8 +400,9 @@ def main(argv=None):
             tree_supervision_weight=args.tree_supervision_weight, device=device)
 
     if args.resume or args.path_resume:
+        ext = ".dcp" if args.checkpoint_backend == "orbax" else ".pth"
         candidates = [args.path_resume] if args.path_resume else [
-            os.path.join(args.checkpoint_dir, trainer.checkpoint_fname() + suffix + ".pth")
+            os.path.join(args.checkpoint_dir, trainer.checkpoint_fname() + suffix + ext)
             for suffix in ("-last", "")]
         path = next((p for p in candidates if p and os.path.exists(p)), None)
         if path:
@@ -386,7 +421,13 @@ def main(argv=None):
             acc = analyzer.accuracy  # the analyzer defines the metric
         Colors.green(f"==> Eval accuracy: {acc:.2f}%")
         return acc
-    best = trainer.fit()
+    if args.profile:
+        from .profiling import trace
+
+        with trace(args.profile):
+            best = trainer.fit()
+    else:
+        best = trainer.fit()
     Colors.green(f"==> Best accuracy: {best:.2f}%")
     return best
 

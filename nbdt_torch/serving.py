@@ -9,6 +9,8 @@ ahead-of-time compilation (counterpart of ``nbdt_tpu/serving.py``).
   Loading it needs no model code, checkpoint or hierarchy JSON.
 - :func:`aot_compile`: the same function through ``torch.compile`` for a
   fixed batch, compiled and warmed up before the first request.
+- :func:`shard_serving`: a serving fn over a data-parallel mesh, each rank
+  serving its rows of the global batch.
 
 An exported or compiled program carries no matmul precision: the tree
 products are plain matmuls in its graph (:func:`nbdt_torch.rules.exact_matmul`
@@ -36,7 +38,8 @@ from .models.fold import fold_batchnorm
 from .rules import DeviceTreeArrays, exact_f32, soft_forward, to_device_tree
 from .utils import resolve_device
 
-__all__ = ("ServingModule", "make_serving_fn", "export_serving", "load_serving", "aot_compile")
+__all__ = ("ServingModule", "make_serving_fn", "export_serving", "load_serving", "aot_compile",
+           "shard_serving")
 
 
 class ServingModule(nn.Module):
@@ -207,3 +210,33 @@ def aot_compile(fn: Callable, batch: int, image_size: int, dtype=torch.float32,
 
     run(torch.zeros((batch, image_size, image_size, 3), dtype=dtype, device=device))
     return run
+
+
+def shard_serving(fn: Callable, mesh) -> Callable:
+    """Data-parallel serving over a mesh (:func:`nbdt_torch.parallel.make_mesh`):
+    every rank calls the returned function with the same global batch, runs
+    ``fn`` on its dp rows and gathers the outputs, so each rank returns what
+    ``fn`` returns on the whole batch (JAX's sharded output holds the global
+    result). The batch must divide by the dp extent. At one rank it is
+    ``fn``."""
+    import torch.distributed as dist
+
+    from .parallel import dp_rows
+
+    dp = mesh.size(0)
+    if dp == 1:
+        return fn
+    group = mesh.get_group("dp")
+    nccl = dist.get_backend(group) == "nccl"
+
+    def sharded(x):
+        out = fn(x[dp_rows(mesh, x.shape[0])]).contiguous()
+        if nccl:
+            full = out.new_empty((out.shape[0] * dp, *out.shape[1:]))
+            dist.all_gather_into_tensor(full, out, group=group)
+            return full
+        parts = [torch.empty_like(out) for _ in range(dp)]
+        dist.all_gather(parts, out, group=group)  # gloo has no all_gather_into_tensor
+        return torch.cat(parts)
+
+    return sharded

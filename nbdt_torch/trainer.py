@@ -20,7 +20,16 @@ uploaded once and the step gathers, augments and normalizes on the device;
 its permutation and augment draws come from a ``torch.Generator``, so they
 are not JAX's bits). Inputs are NHWC; the model sees an NCHW view.
 Checkpoints are a ``.pth`` state dict beside the JAX package's ``.json``
-meta.
+meta, or (``checkpoint_backend="orbax"``) a ``.dcp`` directory written by
+``torch.distributed.checkpoint``, collectively on a mesh; that directory is
+not orbax's format.
+
+On a mesh (``Trainer(mesh=...)``, :mod:`nbdt_torch.parallel`) each rank
+trains its dp rows of the global batch: the BatchNorms become
+:class:`~nbdt_torch.parallel.CrossRankBatchNorm2d` (flax's global-batch
+statistics under a sharded ``jit``), DDP all-reduces the gradients, and
+the reported metrics and eval counts are all-reduced, so every rank prints
+what the one-process trainer prints on the same global batches.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .losses import (cross_entropy, hard_tree_sup_loss, hard_tree_sup_loss_custom,
@@ -79,6 +89,9 @@ class TrainConfig:
     cache_crop_pad: int = 4  # random-crop padding of the device augment
     cache_flip: bool = True  # random horizontal flip of the device augment
     cache_steps_per_call: int = 16  # optimizer steps a cached step call runs
+    # pth: the model's state dict; orbax: a torch.distributed.checkpoint
+    # directory (.dcp; not orbax's format), written collectively on a mesh
+    checkpoint_backend: str = "pth"
     # Write a rolling "<fname>-last" checkpoint every epoch as well.
     save_last: bool = True
     # SoftTreeLoss schedule
@@ -199,29 +212,36 @@ def _bn_buffers(model: torch.nn.Module):
             for b in m.buffers()]
 
 
-def _remat(model: torch.nn.Module) -> Callable:
-    """The model's forward through ``torch.utils.checkpoint``: activations
+class _Remat(torch.nn.Module):
+    """``model``'s forward through ``torch.utils.checkpoint``: activations
     are recomputed in the backward. The recompute leaves the BatchNorm
     running statistics as the forward left them (they update once a step,
-    as in JAX, where the recompute is pure)."""
-    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+    as in JAX, where the recompute is pure). On a mesh the recompute takes
+    the same cross-rank statistics again: every rank recomputes at the same
+    point of its backward, so their collectives pair up."""
 
-    def run(x, state):
-        if not state:
-            state.append(True)
-            return model(x)
-        saved = [b.clone() for b in _bn_buffers(model)]
-        out = model(x)
-        with torch.no_grad():
-            for b, s in zip(_bn_buffers(model), saved):
-                b.copy_(s)
-        return out
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
 
-    def forward(x):
+    def forward(self, x):
+        from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+        model = self.model
+
+        def run(x, state):
+            if not state:
+                state.append(True)
+                return model(x)
+            saved = [b.clone() for b in _bn_buffers(model)]
+            out = model(x)
+            with torch.no_grad():
+                for b, s in zip(_bn_buffers(model), saved):
+                    b.copy_(s)
+            return out
+
         with set_checkpoint_early_stop(False):  # the recompute runs to the end, restore included
             return checkpoint(run, x, [], use_reentrant=False)
-
-    return forward
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -230,7 +250,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     criterion_fn: Optional[Callable] = None, pre_start: bool = False,
                     normalize=None, cached: bool = False, batch_size: Optional[int] = None,
                     crop_pad: int = 4, flip: bool = True, steps_per_call: int = 1,
-                    bf16: bool = False):
+                    bf16: bool = False, forward: Optional[torch.nn.Module] = None,
+                    group=None, rows: Optional[slice] = None):
     """The train step, which updates ``model`` and ``optimizer`` in place.
 
     Host-fed: ``step(x, y, tree_weight, xent_weight, count) -> metrics`` on
@@ -246,16 +267,27 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     Metrics are device tensors (no sync): ``loss``, ``loss_xent``,
     ``loss_tree``, ``acc`` and the batch's ``logits``.
+
+    On a mesh: ``forward`` is the module the batch runs through (the DDP
+    wrapper of ``model``, or of its remat wrapper; by default ``model``, or
+    its remat wrapper with ``remat``); the metrics but the logits are
+    averaged over the ranks of ``group``; and a cached step takes ``rows``
+    of each global batch (this rank's dp slice) after drawing the whole
+    batch's indices and augment, so every rank's generator stays in step
+    and the ranks' rows together are the one-process batch.
     """
     criterion = criterion_fn or cross_entropy
     tree_term = tree_term_fn(loss_name, jt, tsw, criterion_fn=criterion, pre_start=pre_start)
     device = next(model.parameters()).device
     prologue = _normalize_prologue(normalize, device)
-    forward = _remat(model) if remat else model
+    if forward is None:
+        forward = _Remat(model) if remat else model
+    world = dist.get_world_size(group) if group is not None else 1
+    reported = ("loss", "loss_xent", "loss_tree", "acc")
 
     def core(x, y, tree_weight, xent_weight, count):
-        for group in optimizer.param_groups:
-            group["lr"] = lr_at(count)
+        for param_group in optimizer.param_groups:
+            param_group["lr"] = lr_at(count)
         model.train()
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
             logits = forward(x.permute(0, 3, 1, 2))
@@ -267,13 +299,18 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         total.backward()
         optimizer.step()
         logits = logits.detach()
-        return {
+        m = {
             "loss": total.detach(),
             "loss_xent": loss_x.detach(),
             "loss_tree": loss_t.detach() if torch.is_tensor(loss_t) else torch.zeros(()),
             "acc": (logits.argmax(-1) == y).float().mean(),
-            "logits": logits,
         }
+        if world > 1:
+            mean = torch.stack([m[k].to(device) for k in reported])
+            dist.all_reduce(mean, group=group)
+            m.update(zip(reported, (mean / world).unbind()))
+        m["logits"] = logits
+        return m
 
     if not cached:
         def step(x, y, tree_weight, xent_weight, count):
@@ -289,9 +326,12 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         out = []
         for j in range(steps_per_call):
             idx = perm[(step_i + j) * batch_size:(step_i + j + 1) * batch_size]
+            offsets, flips = draw_augment(generator, batch_size, crop_pad, flip)
+            if rows is not None:
+                idx, offsets = idx[rows], offsets[rows]
+                flips = flips[rows] if flips is not None else None
             x = images.index_select(0, idx)
             y = labels.index_select(0, idx)
-            offsets, flips = draw_augment(generator, batch_size, crop_pad, flip)
             x = _device_augment(x, offsets if crop_pad else None, flips, crop_pad)
             m = core(prologue(x), y, tree_weight, xent_weight, count + j)
             m.pop("logits")
@@ -316,18 +356,21 @@ def _batch_hit_counts(model, prologue, x, y, valid, k, analyzer_fwd, analyzer_k)
 
 
 def make_cached_eval_count_step(model, k: int, batch_size: int, n_batches: int, device,
-                                normalize=None, analyzer_fwd=None, analyzer_k: int = 1):
+                                normalize=None, analyzer_fwd=None, analyzer_k: int = 1,
+                                rows: Optional[slice] = None):
     """The whole eval over a device-resident test store padded to
     ``n_batches * batch_size`` rows with a validity mask: hit counts as
-    device scalars."""
+    device scalars. ``rows``: this rank's dp slice of each batch (a mesh
+    all-reduces the counts)."""
     prologue = _normalize_prologue(normalize, device)
+    rows = rows or slice(0, batch_size)
 
     @torch.no_grad()
     def step(images, labels, valid):
         model.eval()
         hits = ahits = total = 0
         for i in range(n_batches):
-            s = slice(i * batch_size, (i + 1) * batch_size)
+            s = slice(i * batch_size + rows.start, i * batch_size + rows.stop)
             h, a, c = _batch_hit_counts(model, prologue, images[s], labels[s], valid[s], k,
                                         analyzer_fwd, analyzer_k)
             hits, total = hits + h, total + c
@@ -370,7 +413,8 @@ def make_eval_count_step(model, k: int, device, normalize=None, analyzer_fwd=Non
 class Trainer:
     """End-to-end trainer (the reference's main.py semantics) on ``device``
     (CUDA unless the caller passes ``device="cpu"``). It trains a private
-    copy of ``model``; :attr:`model` is the live one."""
+    copy of ``model``; :attr:`model` is the live one (never the DDP
+    wrapper, so checkpoints, eval and tree refreshes see the plain keys)."""
 
     def __init__(
         self,
@@ -387,14 +431,36 @@ class Trainer:
         device_normalize=None,
         device_normalize_eval=None,
         device="cuda",
+        mesh=None,
+        zero: bool = False,
     ):
         """``device_normalize``: ``(mean, std)`` in [0, 1] units: the loaders
         ship raw uint8 batches and the steps normalize on the device;
-        ``device_normalize_eval`` overrides it for the test set."""
+        ``device_normalize_eval`` overrides it for the test set.
+
+        ``mesh``: a ``DeviceMesh`` from :func:`nbdt_torch.parallel.make_mesh`.
+        Each rank then trains its dp rows: a host-fed loader yields this
+        rank's ``batch_size / dp`` rows (``num_shards``/``shard_id``); a
+        cached epoch draws the global batch and takes this rank's rows of
+        it. ``zero``: ZeRO-1, the momentum partitioned over dp (needs
+        ``mesh``)."""
+        if zero and mesh is None:
+            raise ValueError("zero=True requires a mesh")
         self.device = resolve_device(device)
         self.show_progress = show_progress
         self.config = config
         self.model = copy.deepcopy(model).to(self.device, memory_format=torch.channels_last)
+        self.mesh, self._zero = mesh, zero
+        self._group = self._rows = self._forward = None
+        self._world = 1
+        if mesh is not None:
+            from .parallel import convert_batchnorm, dp_rows
+
+            self._group = mesh.get_group("dp")
+            self._world = dist.get_world_size(self._group)
+            convert_batchnorm(self.model, self._group)
+            self._rows = dp_rows(mesh, config.batch_size)
+            self._forward = self._ddp()
         self.trainloader = trainloader
         self.testloader = testloader
         self.tree = tree
@@ -434,7 +500,7 @@ class Trainer:
             n_train = len(_unwrap_loader(trainloader).dataset)
             self._steps_per_epoch = max(1, n_train // config.batch_size)
         self.lr_at = lr_schedule(config, self._steps_per_epoch)
-        self.optimizer = make_optimizer(config, self.model.parameters())
+        self.optimizer = self._make_optimizer()
         self.step_count = 0  # optimizer steps taken: the learning-rate schedule's step
         self._pre_start = config.loss == "SoftTreeLoss" and config.tree_start_epochs > 0
         self._cached_train = None
@@ -454,6 +520,39 @@ class Trainer:
                                         normalize=self.device_normalize_eval)
         self.best_acc = 0.0
         self.start_epoch = 0
+
+    def _ddp(self) -> torch.nn.Module:
+        """The DDP wrapper the mesh's steps run the batch through: around the
+        model, or around its remat wrapper, so the recompute stays inside
+        DDP's forward. The cross-rank BatchNorms keep every rank's buffers
+        equal, so DDP broadcasts none."""
+        from torch.nn.parallel import DistributedDataParallel
+
+        inner = _Remat(self.model) if self.config.remat else self.model
+        ids = None
+        if self.device.type == "cuda":
+            ids = [self.device.index if self.device.index is not None
+                   else torch.cuda.current_device()]
+        return DistributedDataParallel(inner, device_ids=ids, process_group=self._group,
+                                       broadcast_buffers=False)
+
+    def _make_optimizer(self) -> torch.optim.Optimizer:
+        optimizer = make_optimizer(self.config, self.model.parameters())
+        if self._zero:
+            from .parallel import shard_opt_state
+
+            optimizer = shard_opt_state(self.mesh, optimizer)
+        return optimizer
+
+    def _allreduce_counts(self, *counts) -> list:
+        """Integer counts summed over the mesh's ranks (each scored its own
+        rows), as ints; unchanged off a mesh or at one rank."""
+        if self._world == 1:
+            return [int(c) for c in counts]
+        total = torch.stack([torch.as_tensor(c, dtype=torch.int64, device=self.device)
+                             for c in counts])
+        dist.all_reduce(total, group=self._group)
+        return total.tolist()
 
     def _upload_stores(self, trainloader, testloader) -> None:
         """The uint8 train store and the test store (padded to whole batches,
@@ -505,7 +604,8 @@ class Trainer:
     def _make_step(self, jt, steps_per_call: Optional[int] = None):
         c = self.config
         kw = dict(tsw=c.tree_supervision_weight, remat=c.remat, criterion_fn=self.criterion_fn,
-                  pre_start=self._pre_start, bf16=c.bf16)
+                  pre_start=self._pre_start, bf16=c.bf16, forward=self._forward,
+                  group=self._group)
         if self._cached_train is not None:
             steps = self._cached_n // c.batch_size
             K = steps_per_call or max(1, min(c.cache_steps_per_call, steps))
@@ -516,7 +616,8 @@ class Trainer:
                 return make_train_step(self.model, self.optimizer, self.lr_at, c.loss, jt,
                                        normalize=self._store_normalize, cached=True,
                                        batch_size=c.batch_size, crop_pad=c.cache_crop_pad,
-                                       flip=c.cache_flip, steps_per_call=k, **kw)
+                                       flip=c.cache_flip, steps_per_call=k, rows=self._rows,
+                                       **kw)
 
             self._train_step_rest = build(rest) if rest else None
             return build(K)
@@ -664,7 +765,8 @@ class Trainer:
                 imgs, lbls, valid, nb = self._cached_test
                 count = make_cached_eval_count_step(
                     self.model, metric.k, self.config.batch_size, nb, self.device,
-                    normalize=self._store_normalize_eval, analyzer_fwd=fwd, analyzer_k=ak)
+                    normalize=self._store_normalize_eval, analyzer_fwd=fwd, analyzer_k=ak,
+                    rows=self._rows)
                 h, a, t = count(imgs, lbls, valid)
             else:
                 count = make_eval_count_step(self.model, metric.k, self.device,
@@ -676,10 +778,11 @@ class Trainer:
                     h, t = h + res[0], t + res[-1]
                     if fwd is not None:
                         a = a + res[1]
-            metric.correct, metric.total = int(h), int(t)
+            h, a, t = self._allreduce_counts(h, a, t)
+            metric.correct, metric.total = h, t
             if self.analyzer is not None:
                 if analyzer_dev is not None:
-                    self.analyzer.metric.correct = int(a)
+                    self.analyzer.metric.correct = a
                     self.analyzer.metric.total = metric.total
                 self.analyzer.end_test(epoch)
             return self._finish_eval(metric, epoch, checkpoint)
@@ -693,6 +796,17 @@ class Trainer:
             if self.analyzer is not None:
                 self.analyzer.update_batch(logits_np, y_np,
                                            self._analyzer_images(np.asarray(x)[valid]))
+        if self._world > 1:
+            # each rank scored its own rows; the best-accuracy save must be
+            # decided alike everywhere (a .dcp save is collective). The
+            # analyzer's own counters first (Superclass), else its metric's.
+            metric.correct, metric.total = self._allreduce_counts(metric.correct, metric.total)
+            an = self.analyzer
+            holder = an if hasattr(an, "correct") and hasattr(an, "total") else getattr(
+                an, "metric", None)
+            if hasattr(holder, "correct"):
+                holder.correct, holder.total = self._allreduce_counts(holder.correct,
+                                                                      holder.total)
         if self.analyzer is not None:
             self.analyzer.end_test(epoch)
         return self._finish_eval(metric, epoch, checkpoint)
@@ -735,27 +849,60 @@ class Trainer:
             include_classes=tuple(c.include_classes or ()),
         )
 
+    def _dcp_kw(self) -> dict:
+        """torch.distributed.checkpoint's group: every rank of the mesh (the
+        world: a mesh spans it), else none at all (a trainer off a mesh saves
+        alone even where a group is up)."""
+        return {} if self.mesh is not None else {"no_dist": True}
+
     def save(self, epoch: int, acc: float, suffix: str = "") -> str:
-        """Write ``<fname><suffix>.pth`` (the model's state dict) and its
-        ``.json`` meta; ``suffix`` "-last" is the rolling per-epoch one."""
+        """Write ``<fname><suffix>.pth`` (the model's state dict), or with
+        ``checkpoint_backend="orbax"`` the ``<fname><suffix>.dcp`` directory
+        (the same state dict through ``torch.distributed.checkpoint``, every
+        rank taking part; not orbax's format), and its ``.json`` meta;
+        ``suffix`` "-last" is the rolling per-epoch one. On a mesh the
+        ranks share the checkpoint directory: rank 0 writes the ``.pth``
+        and the meta, and every rank returns once they are written."""
         os.makedirs(self.config.checkpoint_dir, exist_ok=True)
         path = os.path.join(self.config.checkpoint_dir, self.checkpoint_fname() + suffix)
-        torch.save({k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-                   path + ".pth")
-        with open(path + ".json", "w") as f:
-            # best_acc too: the "-last" checkpoint holds this epoch's accuracy
-            json.dump({"acc": acc, "epoch": epoch, "arch": self.config.arch,
-                       "best_acc": max(self.best_acc, acc)}, f)
-        return path + ".pth"
+        lead = self.mesh is None or dist.get_rank() == 0
+        if self.config.checkpoint_backend == "orbax":
+            import torch.distributed.checkpoint as dcp
+
+            saved = os.path.abspath(path + ".dcp")
+            dcp.save(self.model.state_dict(), checkpoint_id=saved, **self._dcp_kw())
+        else:
+            saved = path + ".pth"
+            if lead:
+                torch.save({k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+                           saved)
+        if lead:
+            with open(path + ".json", "w") as f:
+                # best_acc too: the "-last" checkpoint holds this epoch's accuracy
+                json.dump({"acc": acc, "epoch": epoch, "arch": self.config.arch,
+                           "best_acc": max(self.best_acc, acc)}, f)
+        if self.mesh is not None and dist.get_world_size() > 1:
+            dist.barrier()
+        return saved
 
     def load(self, path: str) -> None:
-        """Restore the model from a ``.pth`` written by :meth:`save`. The
-        momentum restarts (the reference stores only the net), and the
-        learning-rate schedule moves on to the resumed epoch's first step."""
-        state = torch.load(path, map_location=self.device, weights_only=True)
+        """Restore the model from a ``.pth`` or a ``.dcp`` directory written
+        by :meth:`save` (any directory is read as the latter). The momentum
+        restarts (the reference stores only the net; a ZeRO optimizer is
+        rebuilt), and the learning-rate schedule moves on to the resumed
+        epoch's first step."""
+        if path.endswith(".dcp") or os.path.isdir(path):
+            import torch.distributed.checkpoint as dcp
+
+            state = self.model.state_dict()
+            dcp.load(state, checkpoint_id=os.path.abspath(path), **self._dcp_kw())
+            stem = path[: -len(".dcp")] if path.endswith(".dcp") else path
+        else:
+            state = torch.load(path, map_location=self.device, weights_only=True)
+            stem = path[: -len(".pth")] if path.endswith(".pth") else path
         self.model.load_state_dict(state, strict=True)
-        self.optimizer = make_optimizer(self.config, self.model.parameters())
-        meta_path = path[: -len(".pth")] + ".json" if path.endswith(".pth") else path + ".json"
+        self.optimizer = self._make_optimizer()
+        meta_path = stem + ".json"
         if os.path.exists(meta_path):
             with open(meta_path) as f:
                 meta = json.load(f)

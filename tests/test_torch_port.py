@@ -17,7 +17,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "nbdt_tpu")
+FORBIDDEN = ("jax", "flax", "orbax", "nbdt_tpu")
 
 # The conftest ``synthetic_tree``: root -> (A, B, leaf6); A -> (leaf0, leaf1,
 # leaf2); B -> (C, leaf5); C -> (leaf3, leaf4).
@@ -196,6 +196,7 @@ def test_port_imports_nothing_of_jax():
         "import nbdt_torch.models.efficientnet, nbdt_torch.models.resnet\n"
         "import nbdt_torch.serialization, nbdt_torch.models.utils, nbdt_torch.models.convert\n"
         "import nbdt_torch.bin.nbdt, nbdt_torch.bin.original, nbdt_torch.bin.nbdt_export\n"
+        "import nbdt_torch.parallel, nbdt_torch.profiling\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -211,9 +212,21 @@ def test_port_imports_nothing_of_jax():
     assert "clean" in out.stdout
 
 
+def _worker_sources():
+    """chip_smoke.py's worker programs (string constants it runs in
+    subprocesses), as (name, source)."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    return [(f"chip_smoke.{t.id}", node.value.value) for node in tree.body
+            if isinstance(node, ast.Assign) and isinstance(node.value, ast.Constant)
+            and isinstance(node.value.value, str) for t in node.targets
+            if t.id.endswith("_WORKER")]
+
+
 def test_port_sources_have_no_jax_imports():
-    for path in _port_sources():
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    sources = [(p, p.read_text()) for p in _port_sources()] + _worker_sources()
+    assert any(name == "chip_smoke.PAR_WORKER" for name, _ in sources)
+    for path, text in sources:
+        for node in ast.walk(ast.parse(text, str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
