@@ -39,7 +39,13 @@ path's ResNet18 at batch 512 on a one-rank NCCL mesh beside the plain
 trainer, under ZeRO-1, through a ``.dcp`` directory checkpoint; two ranks
 sharing the card over gloo against the plain trainer on the same global
 batches, with ``shard_serving`` of the flagship serving fn at 8192; a
-``--profile`` trace; the CLI's ``--mesh --zero``). Builds every
+``--profile`` trace; the CLI's ``--mesh --zero``), and the segmentation path
+(SoftSegNBDT and HardSegNBDT over the seg trainer's SegNet at 2,097,152
+pixels a request: 150 classes at 512x512 on the ADE20K HRNet-w48 tree and 19
+at 512x1024 on Cityscapes'; the seg trainer at PascalContext's shape, 59
+classes at 480px, batch 8, and its CLI), beside a native phase that holds the
+host input pipeline's C++ kernels (``nbdt_torch.native``) against numpy and
+checks that the host-fed training run went through them. Builds every
 hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
 PyTorch version, checks each path's launch counts and outputs, and times the
 kernels and requests with CUDA events. Exits nonzero, printing no result,
@@ -52,12 +58,14 @@ layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
 its f32 gate, its serving fn, the conv probe path (one request, then the
 probe's parity and timing phases), the training path, the WRN-28-10 serving
 and training path, the zero-shot path, the ImageNet path, the zoo path, the
-export path, the parallel path, times.
+export path, the parallel path, the segmentation path, times; the native
+phase runs after the training path.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import itertools
 import json
@@ -74,22 +82,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nbdt_torch import (HardNBDT, SoftNBDT, aot_compile, export_serving, load_serving,
-                        make_serving_fn)
+from nbdt_torch import (HardNBDT, HardSegNBDT, SoftNBDT, SoftSegNBDT, aot_compile,
+                        export_serving, load_serving, make_serving_fn, native)
 from nbdt_torch import losses as tl
 from nbdt_torch.analysis import HardEmbeddedDecisionRules as HardAnalyzer
 from nbdt_torch.analysis import SoftEmbeddedDecisionRules as SoftAnalyzer
-from nbdt_torch.data import DataLoader, LearnableSyntheticDataset, PrefetchLoader
-from nbdt_torch.data.transforms import CIFAR_MEAN, CIFAR_STD, IMAGENET_MEAN, IMAGENET_STD
+from nbdt_torch.data import (DataLoader, LearnableSyntheticDataset, PrefetchLoader,
+                             SegDataLoader, SyntheticSegDataset)
+from nbdt_torch.data.transforms import (CIFAR_MEAN, CIFAR_STD, IMAGENET_MEAN, IMAGENET_STD,
+                                        augment_uint8, normalize)
+from nbdt_torch.examples import train_seg
 from nbdt_torch.hierarchy.digraph import Digraph
 from nbdt_torch.hierarchy.generate import find_classifier
 from nbdt_torch.main import main as train_cli
-from nbdt_torch.models import ResNet18, vit_b16, wrn28_10_cifar10, wrn28_10_cifar100
+from nbdt_torch.models import ResNet18, SegNet, vit_b16, wrn28_10_cifar10, wrn28_10_cifar100
 from nbdt_torch.ops import _build
 from nbdt_torch.ops import conv3x3 as conv
 from nbdt_torch.ops import layernorm as ln
 from nbdt_torch.ops import soft_traversal as st
-from nbdt_torch.rules import to_device_tree
+from nbdt_torch.rules import (HardEmbeddedDecisionRules, SoftEmbeddedDecisionRules,
+                              get_all_node_outputs, to_device_tree)
 from nbdt_torch.tools import probe_pallas_conv as probe
 from nbdt_torch.tools.count_work import PEAK_BYTES_PER_S, PEAK_F32_FLOPS, head_bound_ms
 from nbdt_torch.trainer import TrainConfig, Trainer, lr_schedule, make_optimizer, make_train_step
@@ -258,6 +270,35 @@ PAR_RTOL = 1e-4
 PAR_STATS_TOL = 1e-5
 PAR_PROFILE_STEPS = 3
 PAR_DEADLINE = 300  # seconds for (d)'s pair; a rank that dies kills its sibling
+# Segmentation path (ROADMAP A16): the seg trainer's SegNet at its published
+# widths, f32 with TF32 off, weights seeded and BatchNorm calibrated on the
+# request. Serving through SoftSegNBDT and HardSegNBDT (the plain rules: seg
+# refuses B1) on the vendored HRNet-w48 trees, 2,097,152 pixels a request:
+# ADE20K (150 classes) at its 512 crop, batch 8, and Cityscapes (19) at its
+# own 512x1024, batch 4. Gates on SEG_SAMPLE sampled pixels against the rules
+# on the same class-map rows, and card vs CPU on a SEG_XDEV crop; soft
+# within SEG_TOL (f32 leaf products summed in other orders); hard exact, a
+# pixel excepted only where a node's two best children are closer than the
+# node logits' own error (SEG_TIE on one device: the GEMM's order; twice the
+# class maps' measured card-vs-CPU difference across devices), counted.
+# Training: PascalContext's shape (59 classes, 520px images cropped to 480),
+# batch 8, 2 epochs of 8 steps, lr 0.05 and tsw 1 (the CLI's defaults).
+SEG_SERVE = (("ADE20K", "induced-HRNet-w48", 8, 512, 512),
+             ("Cityscapes", "induced-HRNet-w48", 4, 512, 1024))
+SEG_SAMPLE = 4096
+SEG_XDEV = (2, 64, 96)
+SEG_TOL = 1e-5
+SEG_TIE = 1e-5
+SEG_TIMED = 5
+SEG_CLASSES, SEG_IMAGE, SEG_CROP, SEG_BATCH, SEG_STEPS = 59, 520, 480, 8, 8
+SEG_LOSS_TOL = 1e-4  # the first step's loss, card vs CPU (the same f32 step)
+# Native phase (ROADMAP A10): the host kernels at the training path's batch
+# of 32px CIFAR images; gather from a store of TRAIN_SIZE images
+NATIVE_TOL = 1e-6  # tests/test_native.py's: the kernel normalizes through a table
+NATIVE_TIMED = 20
+# The host-fed ResNet18 step (epoch 1, device ms) when the loader ran numpy,
+# on an H100 80GB HBM3 at 700 W (PERF.md section 5), printed beside this run's
+NUMPY_HOST_FED_MS = 64.69
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1021,12 +1062,15 @@ def run_training_path(workdir: Path) -> dict:
                                transform=trainset.transform_train())
     tr1, soft = train_run("SoftTreeSupLoss cached", cached_cfg, init, cached_loader, testloader,
                           Tree("CIFAR10"))
-    # 2. HardTreeSupLoss, host-fed through PrefetchLoader (the short last batch trains)
+    # 2. HardTreeSupLoss, host-fed through PrefetchLoader (the short last batch trains),
+    # its batches gathered and augmented by the native host kernels
     host_loader = PrefetchLoader(DataLoader(trainset, TRAIN_BATCH, shuffle=True,
                                             transform=trainset.transform_train(),
                                             drop_last=False))
+    before = dict(native.calls)
     tr2, hard = train_run("HardTreeSupLoss host-fed", TrainConfig(loss="HardTreeSupLoss", **cfg),
                           init, host_loader, testloader, Tree("CIFAR10"))
+    hard["native_calls"] = {k: native.calls[k] - before[k] for k in before}
     xb = torch.as_tensor(trainset.images[:TRAIN_BATCH], device="cuda")
     yb = torch.as_tensor(trainset.labels[:TRAIN_BATCH], device="cuda")
     xn = ((xb.float() / 255.0 - torch.as_tensor(CIFAR_MEAN, device="cuda"))
@@ -1511,16 +1555,16 @@ def calibrate_batchnorm(model: torch.nn.Module, x: torch.Tensor) -> None:
             m.momentum = 0.1
 
 
-def imagenet_images(n: int, img: int, gen: torch.Generator) -> torch.Tensor:
-    """Seeded uint8 NHWC images: normal noise around a per-image colour
-    (uniform in [32, 224] a channel) at a per-image contrast (std uniform in
-    [8, 64]). Images that differ only in their noise (uniform over [0, 255])
-    leave pooled features that differ by less than bf16 resolves: in a CPU
-    run of resnet50 at 224px the folded bf16 serving fn then agreed with f32
-    on 0.125 of rows."""
+def imagenet_images(n: int, img: int, gen: torch.Generator, width: int = 0) -> torch.Tensor:
+    """Seeded uint8 NHWC images, img x img (img x width if given): normal
+    noise around a per-image colour (uniform in [32, 224] a channel) at a
+    per-image contrast (std uniform in [8, 64]). Images that differ only in
+    their noise (uniform over [0, 255]) leave pooled features that differ by
+    less than bf16 resolves: in a CPU run of resnet50 at 224px the folded
+    bf16 serving fn then agreed with f32 on 0.125 of rows."""
     mean = torch.rand(n, 1, 1, 3, device="cuda", generator=gen) * 192 + 32
     contrast = torch.rand(n, 1, 1, 1, device="cuda", generator=gen) * 56 + 8
-    noise = torch.randn(n, img, img, 3, device="cuda", generator=gen)
+    noise = torch.randn(n, img, width or img, 3, device="cuda", generator=gen)
     return (mean + contrast * noise).clamp_(0, 255).round_().to(torch.uint8)
 
 
@@ -2576,6 +2620,287 @@ def run_parallel_path(workdir: Path) -> dict:
     return out
 
 
+def hard_mismatches(got: torch.Tensor, want: torch.Tensor, rows: torch.Tensor, jt,
+                    tie: float) -> tuple:
+    """(pixels whose hard one-hot differs, those among them where some node's
+    two best children are within ``tie`` on the reference's class-map
+    ``rows``: the only pixels where an error of the node logits that small
+    can flip the walk)."""
+    bad = (got != want).any(-1)
+    if not bool(bad.any()):
+        return 0, 0
+    nl = get_all_node_outputs(rows[bad].float(), jt).logits
+    top2 = torch.where(jt.child_mask[None], nl, -torch.inf).topk(2, dim=-1).values
+    ties = ((top2[..., 0] - top2[..., 1]) <= tie).any(-1)
+    return int(bad.sum()), int(ties.sum())
+
+
+def serve_seg(dataset: str, hierarchy: str, batch: int, h: int, w: int, seed: int) -> dict:
+    """One seg serving cell: SoftSegNBDT and HardSegNBDT over a seeded SegNet
+    on the vendored tree, a request of batch x h x w pixels; the gates of
+    the SEG_* comment, device ms a request, Mpixels/s and peak memory."""
+    tree = Tree(dataset, hierarchy=hierarchy)
+    C, jt = tree.arrays.num_classes, to_device_tree(tree.arrays, "cuda")
+    torch.manual_seed(seed)
+    model = SegNet(C).to("cuda", memory_format=torch.channels_last)
+    cgen = torch.Generator(device="cuda").manual_seed(seed)
+    x = imagenet_normalize(imagenet_images(batch, h, cgen, width=w))
+    calibrate_batchnorm(model, x)
+    soft, hard = SoftSegNBDT(None, model, tree=tree), HardSegNBDT(None, model, tree=tree)
+    P, outs, peak = batch * h * w, {}, {}
+    torch.cuda.synchronize()
+    reset_launches()
+    for name, wrapper in (("soft", soft), ("hard", hard)):
+        torch.cuda.reset_peak_memory_stats()
+        outs[name] = wrapper(x)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"[seg] {dataset} launched kernels: {launches}")
+    s, hd = outs["soft"], outs["hard"]
+    check(s.shape == hd.shape == (batch, h, w, C) and bool(torch.isfinite(s).all()),
+          f"[seg] {dataset}: outputs {tuple(s.shape)}, {tuple(hd.shape)}")
+    flat_hard = hd.reshape(-1, C)
+    check(bool(((flat_hard == 0) | (flat_hard == 1)).all() and (flat_hard.sum(1) == 1).all()),
+          f"[seg] {dataset}: hard outputs are not one-hot")
+
+    # the wrappers against the rules on the same class-map rows
+    with torch.no_grad():
+        maps = model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).reshape(-1, C)
+    idx = torch.randperm(P, device="cuda", generator=cgen)[:SEG_SAMPLE]
+    rows = maps[idx]
+    soft_err = float((s.reshape(-1, C)[idx] - SoftEmbeddedDecisionRules(tree=tree)(rows))
+                     .abs().max())
+    check(soft_err <= SEG_TOL, f"[seg] {dataset}: soft leaves off the rules by {soft_err}")
+    bad, ties = hard_mismatches(flat_hard[idx], HardEmbeddedDecisionRules(tree=tree)(rows), rows,
+                                jt, SEG_TIE)
+    check(bad == ties, f"[seg] {dataset}: {bad} sampled pixels' hard leaves differ from the "
+                       f"rules', {ties} of them at ties")
+    classes_predicted = int(flat_hard.argmax(1).unique().numel())
+    del maps, rows, outs, s, hd, flat_hard
+
+    # the card against device="cpu" on a crop of the request
+    n, ch, cw = SEG_XDEV
+    xs = x[:n, :ch, :cw].contiguous()
+    cpu_model = copy.deepcopy(model)
+    cpu_soft = SoftSegNBDT(None, cpu_model, tree=tree, device="cpu")
+    cpu_hard = HardSegNBDT(None, cpu_model, tree=tree, device="cpu")
+    with torch.no_grad():
+        map_gpu = model(xs.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).reshape(-1, C).cpu()
+        map_cpu = cpu_model(xs.cpu().permute(0, 3, 1, 2)).permute(0, 2, 3, 1).reshape(-1, C)
+    map_diff = float((map_gpu - map_cpu).abs().max())
+    xdev_soft = float((soft(xs).cpu() - cpu_soft(xs.cpu())).abs().max())
+    check(xdev_soft <= SEG_TOL, f"[seg] {dataset}: soft card vs CPU {xdev_soft}")
+    xbad, xties = hard_mismatches(hard(xs).cpu().reshape(-1, C),
+                                  cpu_hard(xs.cpu()).reshape(-1, C),
+                                  map_cpu, to_device_tree(tree.arrays, "cpu"),
+                                  2 * map_diff + 1e-6)
+    check(xbad == xties, f"[seg] {dataset}: {xbad} pixels' hard leaves differ card vs CPU, "
+                         f"{xties} of them at ties")
+
+    if dataset == "ADE20K":
+        print_profile(f"SoftSegNBDT {dataset} request of {batch}x{h}x{w}",
+                      *profile_ms(lambda: soft(x), n=2))
+    rec = {"dataset": dataset, "hierarchy": hierarchy, "classes": C,
+           "inner_nodes": tree.arrays.num_inodes, "batch": batch, "height": h, "width": w,
+           "pixels": P, "launches": launches, "soft_max_abs_err": soft_err,
+           "hard_mismatches": bad, "hard_ties": ties, "classes_predicted": classes_predicted,
+           "xdev_crop": list(SEG_XDEV), "xdev_soft_max_abs_err": xdev_soft,
+           "xdev_class_map_max_abs_diff": map_diff, "xdev_hard_mismatches": xbad,
+           "xdev_hard_ties": xties}
+    for name, wrapper in (("soft", soft), ("hard", hard)):
+        ms = time_cuda(lambda: wrapper(x), n=SEG_TIMED, warmup=1)
+        rec.update({f"{name}_ms_per_request": ms,
+                    f"{name}_wall_ms_per_request": wall_ms(lambda: wrapper(x), n=SEG_TIMED,
+                                                           warmup=1),
+                    f"{name}_mpixels_per_s": P / ms / 1e3,
+                    f"{name}_peak_bytes": peak[name]})
+    print(f"[seg] {dataset} {hierarchy} (C={C}) request of {batch}x{h}x{w} = {P} pixels: "
+          f"SoftSegNBDT {rec['soft_ms_per_request']:.3f} ms ({rec['soft_mpixels_per_s']:.1f} "
+          f"Mpixels/s, host clock {rec['soft_wall_ms_per_request']:.3f} ms, peak "
+          f"{peak['soft'] / 1e9:.3f} GB), HardSegNBDT {rec['hard_ms_per_request']:.3f} ms "
+          f"({rec['hard_mpixels_per_s']:.1f} Mpixels/s, peak {peak['hard'] / 1e9:.3f} GB); "
+          f"{SEG_SAMPLE} sampled pixels: soft within {soft_err:.3g} of the rules, hard "
+          f"{bad} differing ({ties} at ties); card vs CPU on {n}x{ch}x{cw}: soft {xdev_soft:.3g}, "
+          f"hard {xbad} differing ({xties} at ties; class maps within {map_diff:.3g}); "
+          f"{classes_predicted} classes predicted; launches {json.dumps(launches)}", flush=True)
+    return rec
+
+
+def check_seg_tree_precision(model, x: torch.Tensor, y: torch.Tensor, jt) -> int:
+    """The seg trainer's loss under a process-wide "medium" f32 precision:
+    every product touching the tree's N*K slots runs at "highest", forward
+    and backward (node logits and leaf sums: two products each way)."""
+    S = jt.num_inodes * jt.max_children
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        spy = PrecisionSpy()
+        with spy:
+            out = model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            train_seg.seg_loss(out, y, jt, 1.0).backward()
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+        model.zero_grad(set_to_none=True)
+    tree = [prec for shapes, prec in spy.calls if any(S in shape for shape in shapes)]
+    check(len(tree) == 4 and set(tree) == {"highest"},
+          f"[seg train] tree-loss products and their precisions: {tree}")
+    return len(tree)
+
+
+def run_seg_training() -> dict:
+    """The seg trainer at PascalContext's shape: the loader's host ms a
+    batch, the first step card vs CPU, 2 epochs of 8 steps through
+    ``train_seg.fit`` on the card, a step's device ms on a fixed batch, the
+    tree products' precision, then the CLI at its defaults."""
+    lr, tsw = 0.05, 1.0
+
+    def dataset(seed=0, size=SEG_BATCH * SEG_STEPS):
+        return SyntheticSegDataset(num_classes=SEG_CLASSES, size=size, image_size=SEG_IMAGE,
+                                   crop_size=SEG_CROP, seed=seed)
+
+    t0 = time.perf_counter()
+    batches = list(SegDataLoader(dataset(), SEG_BATCH, shuffle=True))
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    x0, y0 = batches[0]
+    torch.manual_seed(13)
+    init = SegNet(SEG_CLASSES)
+    tree = train_seg.induce_tree(init, [f"segclass{i}" for i in range(SEG_CLASSES)])
+    first = {}
+    for key, dev in (("card", "cuda"), ("cpu", "cpu")):
+        model = copy.deepcopy(init).to(dev, memory_format=torch.channels_last)
+        step = train_seg.make_seg_step(
+            model, torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9),
+            to_device_tree(tree.arrays, dev), tsw)
+        first[key] = float(step(torch.as_tensor(x0, device=dev), torch.as_tensor(y0, device=dev)))
+    diff = abs(first["card"] - first["cpu"])
+    check(diff <= SEG_LOSS_TOL, f"[seg train] first step card vs CPU: {first}")
+
+    val = dataset(seed=1, size=SEG_BATCH)
+    val.split = "val"
+    model = copy.deepcopy(init).to("cuda", memory_format=torch.channels_last)
+    jt = to_device_tree(tree.arrays, "cuda")
+    t0 = time.perf_counter()
+    records = train_seg.fit(model, jt, SegDataLoader(dataset(), SEG_BATCH, shuffle=True),
+                            SegDataLoader(val, SEG_BATCH, drop_last=False), 2, lr, tsw, "cuda",
+                            log=lambda line: print(f"[seg train] {line}", flush=True))
+    fit_s = time.perf_counter() - t0
+    losses = [v for r in records for v in r["step_losses"]]
+    check(len(losses) == 2 * SEG_STEPS and all(math.isfinite(v) for v in losses),
+          f"[seg train] step losses {losses}")
+    xb, yb = torch.as_tensor(x0, device="cuda"), torch.as_tensor(y0, device="cuda")
+    step = train_seg.make_seg_step(model, torch.optim.SGD(model.parameters(), lr=lr,
+                                                          momentum=0.9), jt, tsw)
+    step_ms = time_cuda(lambda: step(xb, yb), n=SEG_TIMED, warmup=2)
+    print_profile(f"SegNet train step, batch {SEG_BATCH}, {SEG_CROP}px, {SEG_CLASSES} classes",
+                  *profile_ms(lambda: step(xb, yb), n=3))
+    n_products = check_seg_tree_precision(model, xb, yb, jt)
+
+    t0 = time.perf_counter()
+    cli = train_seg.main(["--dataset", "synthetic", "--epochs", "1"])
+    cli_losses = cli["epochs"][0]["step_losses"]
+    check(len(cli_losses) == 8 and all(math.isfinite(v) for v in cli_losses)
+          and cli["output_shape"] == (8, 64, 64, 20), f"[seg train] the CLI: {cli}")
+    cli_s = time.perf_counter() - t0
+    print(f"[seg train] PascalContext shape ({SEG_CLASSES} classes, {SEG_IMAGE}px cropped to "
+          f"{SEG_CROP}, batch {SEG_BATCH}): SegDataLoader {loader_ms:.1f} host ms a batch; "
+          f"a step {step_ms:.3f} device ms on a fixed batch; 2 epochs of {SEG_STEPS} steps "
+          f"through fit in {fit_s:.2f} s ({fit_s * 1e3 / (2 * SEG_STEPS):.1f} ms a step with "
+          f"the loader and the eval), losses {[round(v, 4) for v in losses]}; first step card "
+          f"{first['card']:.7f} vs CPU {first['cpu']:.7f} (|diff| {diff:.3g}, tolerance "
+          f"{SEG_LOSS_TOL}); tree-loss products at \"highest\": {n_products}; the CLI "
+          f"(--dataset synthetic --epochs 1) in {cli_s:.1f} s, loss "
+          f"{cli['epochs'][0]['loss']:.4f}", flush=True)
+    return {"classes": SEG_CLASSES, "image": SEG_IMAGE, "crop": SEG_CROP, "batch": SEG_BATCH,
+            "steps_per_epoch": SEG_STEPS, "loader_host_ms_per_batch": loader_ms,
+            "device_ms_per_step": step_ms, "fit_seconds": fit_s,
+            "fit_ms_per_step": fit_s * 1e3 / (2 * SEG_STEPS), "step_losses": losses,
+            "pixel_acc": [r["pixel_acc"] for r in records], "first_step_card": first["card"],
+            "first_step_cpu": first["cpu"], "first_step_abs_diff": diff,
+            "tree_products_highest": n_products,
+            "cli": {"loss": cli["epochs"][0]["loss"], "seconds": cli_s}}
+
+
+def run_seg_path() -> dict:
+    """(a) seg serving at 2,097,152 pixels a request on two trees, (b) the
+    seg trainer; no kernel launches over either."""
+    torch.cuda.synchronize()
+    reset_launches()
+    serving = {f"{d.lower()}_{b}x{h}x{w}": serve_seg(d, hier, b, h, w, 300 + i)
+               for i, (d, hier, b, h, w) in enumerate(SEG_SERVE)}
+    training = run_seg_training()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"segmentation path launched kernels: {launches}")
+    print(f"[seg] kernel launches over the segmentation path: {json.dumps(launches)}",
+          flush=True)
+    return {"serving": serving, "train": training, "launches": launches}
+
+
+def run_native_phase(train: dict) -> dict:
+    """The host kernels against numpy at the training path's batch (512 x
+    32x32x3): gather bitwise, augment and normalize within NATIVE_TOL; their
+    host ms against the numpy path's; the training path's host-fed run went
+    through the native gather and augment."""
+    check(native.available(), f"[native] no library: {native.build_error}")
+    rng = np.random.RandomState(21)
+    store = rng.randint(0, 256, (TRAIN_SIZE, 32, 32, 3), dtype=np.uint8)
+    idx = rng.permutation(TRAIN_SIZE)[:TRAIN_BATCH]
+    x = store[idx]
+    gathered = native.gather_batch_u8(store, idx)
+    check(np.array_equal(gathered, x), "[native] gather_batch_u8 differs from numpy indexing")
+
+    def numpy_augment(r):  # the numpy path of make_train_transform, its draws included
+        ys, xs = r.randint(0, 9, size=len(x)), r.randint(0, 9, size=len(x))
+        return normalize(augment_uint8(x, 4, ys, xs, r.rand(len(x)) < 0.5), CIFAR_MEAN, CIFAR_STD)
+
+    aug_err = float(np.abs(native.augment_batch(x, 4, CIFAR_MEAN, CIFAR_STD,
+                                                np.random.RandomState(5))
+                           - numpy_augment(np.random.RandomState(5))).max())
+    norm_err = float(np.abs(native.normalize_batch(x, CIFAR_MEAN, CIFAR_STD)
+                            - normalize(x, CIFAR_MEAN, CIFAR_STD)).max())
+    check(aug_err <= NATIVE_TOL and norm_err <= NATIVE_TOL,
+          f"[native] augment {aug_err}, normalize {norm_err} off numpy")
+
+    def host_ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(NATIVE_TIMED):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / NATIVE_TIMED
+
+    r = np.random.RandomState(6)
+    times = {
+        "gather_native": host_ms(lambda: native.gather_batch_u8(store, idx)),
+        "gather_numpy": host_ms(lambda: store[idx]),
+        "augment_native": host_ms(lambda: native.augment_batch(x, 4, CIFAR_MEAN, CIFAR_STD, r)),
+        "augment_numpy": host_ms(lambda: numpy_augment(r)),
+        "normalize_native": host_ms(lambda: native.normalize_batch(x, CIFAR_MEAN, CIFAR_STD)),
+        "normalize_numpy": host_ms(lambda: normalize(x, CIFAR_MEAN, CIFAR_STD)),
+    }
+    host_fed = train["hard_host_fed"]
+    calls = host_fed["native_calls"]
+    check(calls["gather_batch_u8"] > 0 and calls["augment_batch"] > 0,
+          f"[native] the host-fed training run did not go through the library: {calls}")
+    step = host_fed["epochs"][1]
+    print(f"[native] {native.library_path().name} built and loaded; at {TRAIN_BATCH}x32x32x3: "
+          f"gather bitwise equal to numpy, augment within {aug_err:.3g}, normalize within "
+          f"{norm_err:.3g}; host ms a batch, native vs numpy: "
+          + ", ".join(f"{k} {times[f'{k}_native']:.3f} vs {times[f'{k}_numpy']:.3f}"
+                      for k in ("gather", "augment", "normalize"))
+          + f"; the host-fed ResNet18 run's native calls {json.dumps(calls)}, its epoch-1 step "
+          f"{step['device_ms_per_step']:.3f} device ms ({step['host_ms_per_step']:.3f} host ms; "
+          f"on the numpy path: {NUMPY_HOST_FED_MS} device ms)", flush=True)
+    return {"library": native.library_path().name, "batch": [TRAIN_BATCH, 32, 32, 3],
+            "augment_max_abs_err": aug_err, "normalize_max_abs_err": norm_err,
+            "gather_bitwise": True, "host_ms_per_batch": times, "host_fed_native_calls": calls,
+            "host_fed_device_ms_per_step": step["device_ms_per_step"],
+            "host_fed_host_ms_per_step": step["host_ms_per_step"]}
+
+
 def time_path_head(feats: torch.Tensor, hc: st.HeadConstants, label: str) -> dict:
     """B1 on a path's own features and classifier (f32 W): the kernel, its
     plain version and, as a yardstick for the classifier alone,
@@ -2715,6 +3040,10 @@ def main() -> int:
     for name in kernels:
         _build.load_library(name)
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    check(native.available(), f"[build] the native host library: {native.build_error}")
+    print(f"[build] native host library {native.library_path().name} (g++ "
+          f"{' '.join(native.GXX_FLAGS)}): {time.perf_counter() - t0:.2f} s", flush=True)
     for name in kernels:
         for line in ptxas_report(name):
             print(f"[build] {name} {line}", flush=True)
@@ -2748,6 +3077,7 @@ def main() -> int:
     train = run_training_path(Path(__file__).resolve().parent / "build" / "chip_smoke_train")
     train["seconds"] = time.perf_counter() - t0
     print(f"[train] the training path took {train['seconds']:.1f} s", flush=True)
+    native_rec = run_native_phase(train)
     t0 = time.perf_counter()
     wrn = run_wrn_serving(wrn_c100)
     wrn_train = run_wrn_training(wrn_c100,
@@ -2778,6 +3108,10 @@ def main() -> int:
     parallel = run_parallel_path(Path(__file__).resolve().parent / "build" / "chip_smoke_par")
     parallel["seconds"] = time.perf_counter() - t0
     print(f"[parallel] the parallel path took {parallel['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    seg = run_seg_path()
+    seg["seconds"] = time.perf_counter() - t0
+    print(f"[seg] the segmentation path took {seg['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -2825,6 +3159,8 @@ def main() -> int:
                 "seconds": zoo["seconds"]},
         "export": export,
         "parallel": parallel,
+        "segmentation": seg,
+        "native": native_rec,
         "card": smi}}), flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2910,6 +3246,7 @@ def main() -> int:
         "launches_on_zero_shot_path": zero_shot["launches"]["soft_head"],
         "launches_on_export_path": export["launches"]["soft_head"],
         "launches_on_parallel_path": parallel["launches"]["soft_head"],
+        "launches_on_segmentation_path": seg["launches"]["soft_head"],
         "instance_by_shape": {"resnet18": head_resnet[f32]["instance"],
                               "vit_b16": head_vit[f32]["instance"],
                               "cifar100_d2048": head_wide[f32]["instance"],
@@ -2938,6 +3275,7 @@ def main() -> int:
         "launches_on_zero_shot_path": zero_shot["launches"]["layernorm"],
         "launches_on_export_path": export["launches"]["layernorm"],
         "launches_on_parallel_path": parallel["launches"]["layernorm"],
+        "launches_on_segmentation_path": seg["launches"]["layernorm"],
         "max_abs_err": ln_err[f32],
         "ms": ln_t[f32]["ms"],
         "plain_ms": ln_t[f32]["plain_ms"],
@@ -2960,6 +3298,7 @@ def main() -> int:
         "launches_on_zero_shot_path": zero_shot["launches"]["conv3x3"],
         "launches_on_export_path": export["launches"]["conv3x3"],
         "launches_on_parallel_path": parallel["launches"]["conv3x3"],
+        "launches_on_segmentation_path": seg["launches"]["conv3x3"],
         "max_abs_err": conv_err,
         "ms": conv_t["kernel"]["ms"],
         "plain_ms": conv_t["plain"]["ms"],

@@ -14,8 +14,10 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
   rules       soft and hard decision rules as plain PyTorch (exact f32)
   losses      the tree-supervision losses
   analysis    the --analysis plugins, the zero-shot Superclass pair too
-  data/       CIFAR, ImageNet-folder and synthetic datasets, label-subset
-              wrappers, batch transforms, loaders
+  data/       CIFAR, ImageNet-folder, segmentation and synthetic datasets,
+              label-subset wrappers, batch transforms, loaders
+  native/     the host input pipeline's C++ kernels (augment, normalize,
+              gather), built with g++ at first use
   trainer     TrainConfig, Trainer; main is the training CLI
   models      the backbones of the JAX registry (NCHW), BN folding, the
               flax -> torch converter, get_model; models.utils: released
@@ -24,7 +26,8 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
               checkpoints
   ops         hand-written CUDA kernels (csrc/: soft head, LayerNorm) beside
               their plain versions
-  model       NBDT / SoftNBDT / HardNBDT wrappers (NHWC input), model_urls
+  model       NBDT / SoftNBDT / HardNBDT wrappers (NHWC input), model_urls,
+              and the per-pixel SegNBDT / SoftSegNBDT / HardSegNBDT
   serving     make_serving_fn; export_serving / load_serving (torch.export
               artifacts), aot_compile (torch.compile) and shard_serving
   parallel/   the process group, the (dp, tp) DeviceMesh, the cross-rank
@@ -32,6 +35,7 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
   profiling   torch.profiler traces, step annotations, StepTimer
   bin/        the CLIs: nbdt, original, nbdt_export, nbdt_hierarchy,
               nbdt_wnids
+  examples/   train_seg, the segmentation trainer
 """
 
 __version__ = "0.1.0"
@@ -44,6 +48,7 @@ from .rules import (
     SoftEmbeddedDecisionRules,
     to_device_tree,
 )
-from .model import NBDT, HardNBDT, SoftNBDT, TaggedOutput, model_urls
+from .model import (NBDT, HardNBDT, HardSegNBDT, SegNBDT, SoftNBDT, SoftSegNBDT, TaggedOutput,
+                    model_urls)
 from .serving import (aot_compile, export_serving, load_serving, make_serving_fn,
                       shard_serving)

@@ -1,8 +1,9 @@
-"""Input pipelines: datasets, batch transforms and the loader.
+"""Input pipelines: datasets, batch transforms and the loaders.
 
-CIFAR10, CIFAR100, TinyImagenet200, Imagenet1000, the synthetic sets and
-the label-subset wrappers; the segmentation datasets are still to be
-ported."""
+CIFAR10, CIFAR100, TinyImagenet200, Imagenet1000, the synthetic sets, the
+label-subset wrappers, and the segmentation datasets (Cityscapes,
+PascalContext, LookIntoPerson, ADE20K, SyntheticSegDataset) with their
+SegDataLoader."""
 
 from .cifar import (
     CIFAR10,
@@ -21,6 +22,14 @@ from .custom import (
 )
 from .imagenet import Imagenet1000, TinyImagenet200
 from .loader import DataLoader, PrefetchLoader
+from .segmentation import (
+    ADE20K,
+    Cityscapes,
+    LookIntoPerson,
+    PascalContext,
+    SegDataLoader,
+    SyntheticSegDataset,
+)
 from .transforms import (
     CIFAR_MEAN,
     CIFAR_STD,
@@ -39,6 +48,10 @@ DATASET_REGISTRY = {
     "CIFAR100": CIFAR100,
     "TinyImagenet200": TinyImagenet200,
     "Imagenet1000": Imagenet1000,
+    "Cityscapes": Cityscapes,
+    "PascalContext": PascalContext,
+    "LookIntoPerson": LookIntoPerson,
+    "ADE20K": ADE20K,
     "SyntheticDataset": SyntheticDataset,
     "LearnableSyntheticDataset": LearnableSyntheticDataset,
 }
@@ -46,6 +59,5 @@ DATASET_REGISTRY = {
 
 def get_dataset(name: str):
     if name not in DATASET_REGISTRY:
-        raise KeyError(f"Unknown dataset {name!r}: the port has {sorted(DATASET_REGISTRY)} "
-                       "(the others are ROADMAP A10)")
+        raise KeyError(f"Unknown dataset {name!r}: {sorted(DATASET_REGISTRY)}")
     return DATASET_REGISTRY[name]

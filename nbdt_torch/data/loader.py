@@ -1,8 +1,9 @@
 """Batched host data loader.
 
 Counterpart of ``nbdt_tpu/data/loader.py``: shuffle indices with a seeded
-``RandomState``, gather a uint8 batch with a plain numpy gather, run the
-batch transform, and yield ``(x, y, valid)`` as numpy arrays (NHWC), in the
+``RandomState``, gather a uint8 batch (the native gather of
+:mod:`nbdt_torch.native` where it is built, else numpy's), run the batch
+transform, and yield ``(x, y, valid)`` as numpy arrays (NHWC), in the
 same order, with the same ``drop_last``/``pad_last`` and shard semantics,
 so the batches are byte-identical to the JAX package's per seed. The
 trainer moves them to the device.
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
+
+from .. import native
 
 
 class DataLoader:
@@ -60,7 +63,14 @@ class DataLoader:
     def _gather(self, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         if self.images is not None:
             src = self._index[idx] if self._index is not None else idx
-            return self.images[src], self.labels[idx]
+            batch = None
+            if (isinstance(self.images, np.ndarray) and self.images.dtype == np.uint8
+                    and self.images.flags.c_contiguous):
+                # releases the GIL: overlaps a PrefetchLoader's caller
+                batch = native.gather_batch_u8(self.images, src)
+            if batch is None:
+                batch = self.images[src]
+            return batch, self.labels[idx]
         samples = [self.dataset[int(i)] for i in idx]
         return np.stack([np.asarray(s[0]) for s in samples]), np.array([s[1] for s in samples])
 

@@ -1,15 +1,19 @@
 """Batch-level numpy transforms and normalization constants.
 
-Counterpart of ``nbdt_tpu/data/transforms.py`` on its numpy path: augment
-whole uint8 NHWC batches on the host (pad + random crop + flip), then
-normalize to f32, or ship uint8 and normalize on the device
+Counterpart of ``nbdt_tpu/data/transforms.py``: augment whole uint8 NHWC
+batches on the host (pad + random crop + flip), then normalize to f32, in
+one pass of the native kernel (:mod:`nbdt_torch.native`) where it is built,
+else in numpy; or ship uint8 and normalize on the device
 (``device_normalize=True``). The random draws are the JAX package's, from
-the same ``RandomState`` in the same order, so the bytes match per seed.
+the same ``RandomState`` in the same order, on either path, so a batch
+matches per seed (the native kernel's f32 within 1e-6 of numpy's).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 # The reference's CIFAR values
 CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], dtype=np.float32)
@@ -78,15 +82,19 @@ def make_train_transform(mean, std, crop_pad: int = 4, hflip: bool = True,
                          seed: int = 0, device_normalize: bool = False):
     """Train-time augmentation of uint8 batches: per batch, draws the crop
     offsets (rows, then columns) and the flips from one ``RandomState``,
-    then crops, flips and normalizes (or, with ``device_normalize``, leaves
-    the normalization to the device and returns uint8)."""
+    then crops, flips and normalizes, in the native kernel where it is
+    built (or, with ``device_normalize``, leaves the normalization to the
+    device and returns uint8)."""
     rng = np.random.RandomState(seed)
     mean = np.asarray(mean, dtype=np.float32)
     std = np.asarray(std, dtype=np.float32)
+    use_native = not device_normalize and native.available()
 
     def transform(batch_u8: np.ndarray) -> np.ndarray:
         if not crop_pad and not hflip:
             return batch_u8 if device_normalize else normalize(batch_u8, mean, std)
+        if use_native:
+            return native.augment_batch(batch_u8, crop_pad, mean, std, rng, hflip=hflip)
         n = batch_u8.shape[0]
         ys = rng.randint(0, 2 * crop_pad + 1, size=n).astype(np.int32)
         xs = rng.randint(0, 2 * crop_pad + 1, size=n).astype(np.int32)
@@ -103,6 +111,9 @@ def make_val_transform(mean, std, device_normalize: bool = False):
     std = np.asarray(std, dtype=np.float32)
 
     def transform(batch_u8: np.ndarray) -> np.ndarray:
-        return batch_u8 if device_normalize else normalize(batch_u8, mean, std)
+        if device_normalize:
+            return batch_u8
+        out = native.normalize_batch(batch_u8, mean, std)
+        return out if out is not None else normalize(batch_u8, mean, std)
 
     return transform

@@ -3,7 +3,9 @@
 Counterpart of ``nbdt_tpu/model.py``. A wrapper composes a backbone
 ``nn.Module`` (NCHW inside) with embedded decision rules. Public inputs keep
 the JAX package's layout, NHWC ``[B, H, W, 3]``; the wrapper permutes once at
-the entry, which hands the backbone a channels-last tensor.
+the entry, which hands the backbone a channels-last tensor. The segmentation
+wrappers (``SegNBDT``, ``HardSegNBDT``, ``SoftSegNBDT``) run the rules on
+every pixel and return NHWC maps, as the JAX ones do.
 
 ``pretrained=True`` loads the released checkpoint of ``(arch, dataset[,
 hierarchy])`` from ``model_urls`` through the local cache
@@ -27,7 +29,8 @@ from .ops.soft_traversal import fused_soft_head, prepare_head_constants
 from .rules import HardEmbeddedDecisionRules, SoftEmbeddedDecisionRules
 from .serialization import read_msgpack
 from .tree import Tree, dataset_to_dummy_classes
-from .utils import DATASET_TO_CLASSES, DATASET_TO_NUM_CLASSES, resolve_device
+from .utils import (DATASET_TO_CLASSES, DATASET_TO_NUM_CLASSES, coerce_tensor, resolve_device,
+                    uncoerce_tensor)
 
 # Released NBDT checkpoints (the JAX package's table, ``nbdt_tpu/model.py``),
 # fetched into the local cache only when a file is not there yet.
@@ -163,8 +166,8 @@ class NBDT:
 
     def _build_fused(self, model, tree):
         assert isinstance(self, SoftNBDT), (
-            "fused=True is the soft-rules serving path (hard rules keep the "
-            "plain formulation)"
+            "fused=True is the soft-rules serving path (hard rules and "
+            "segmentation keep the plain formulation)"
         )
         kernel, bias = get_classifier_from_module(model)
         assert kernel is not None, (
@@ -197,4 +200,31 @@ class HardNBDT(NBDT):
 
 
 class SoftNBDT(NBDT):
+    Rules = SoftEmbeddedDecisionRules
+
+
+class SegNBDT(NBDT):
+    """Per-pixel decision rules for segmentation (the reference's
+    model.py:376-387). Takes NHWC images; the backbone's ``[N, C, H, W]``
+    class maps are permuted to NHWC, flattened so that every pixel is a row,
+    run through the rules once and returned as ``[N, H, W, C]``, as the JAX
+    package's. ``fused=True`` is refused: segmentation keeps the plain rules
+    (exact f32 node decisions) in both packages."""
+
+    @torch.no_grad()
+    def forward(self, x):
+        x = torch.as_tensor(x, device=self.device)
+        if x.ndim != 4:
+            raise ValueError(f"Input must be (N, H, W, C) for segmentation, not {tuple(x.shape)}")
+        maps = self.model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return TaggedOutput(uncoerce_tensor(self.rules(coerce_tensor(maps)), maps.shape))
+
+    __call__ = forward
+
+
+class HardSegNBDT(SegNBDT):
+    Rules = HardEmbeddedDecisionRules
+
+
+class SoftSegNBDT(SegNBDT):
     Rules = SoftEmbeddedDecisionRules

@@ -1,7 +1,8 @@
 """Backbones of the port: the CIFAR and torchvision ResNets, the WideResNets,
 the EfficientNets, the ViTs, the rest of torchvision's zoo (MobileNetV2,
 DenseNet, VGG, AlexNet, GoogLeNet, Inception v3, MNASNet, SqueezeNet,
-ShuffleNetV2), BN folding, the converter and the registry.
+ShuffleNetV2), the seg trainer's SegNet, BN folding, the converter and the
+registry.
 
 Counterpart of ``nbdt_tpu/models/__init__.py``: the registry is an explicit
 dict of constructors ``arch -> (num_classes, dtype, **kw) -> nn.Module``
@@ -16,6 +17,7 @@ from . import efficientnet as _efficientnet
 from .convert import pytorchcv_wrn_keys, state_dict_from_flax
 from .efficientnet import *  # noqa: F401,F403 (EfficientNet and the b0..b8 x {,b,c} grid)
 from .fold import fold_batchnorm
+from .segnet import SegNet
 from .resnet import (
     BasicBlock,
     Bottleneck,

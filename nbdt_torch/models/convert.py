@@ -1,5 +1,5 @@
-"""Flax variables -> the port's torch state dict (ResNet, WRN, EfficientNet
-and ViT layouts).
+"""Flax variables -> the port's torch state dict (ResNet, WRN, EfficientNet,
+ViT, zoo and SegNet layouts).
 
 The JAX package's variables arrive as nested dicts of numpy arrays
 (``params`` plus ``batch_stats``). The transposes are those of the JAX
@@ -25,7 +25,8 @@ of each family's module names (a SqueezeNet's conv classifier keeps its
 ``[C, D, 1, 1]`` weight). The one exception is a VGG with the JAX module's
 collapsed head, which has no torchvision form and which the JAX exporter
 refuses: its classifier maps to the port's own ``classifier.weight`` and
-``classifier.bias``.
+``classifier.bias``. The seg trainer's SegNet keeps its flax module names
+(``c1``, ``bn1``, ..., ``head``) by the same walk.
 
 ``python -m nbdt_torch.models.convert ckpt.msgpack --arch A --out ckpt.pth``
 converts a JAX checkpoint file, read without flax
@@ -189,7 +190,7 @@ def state_dict_from_flax(variables, arch: str) -> Dict[str, torch.Tensor]:
     variant); ``vit_b16``, ``vit_s16`` or ``ViT`` (a ViT of any depth and
     width); or a name of the rest of the zoo (``mobilenet_v2``, ``mnasnet*``,
     ``shufflenet_v2_*``, ``densenet*``, ``alexnet``, ``vgg*``, ``googlenet``,
-    ``inception_v3``, ``squeezenet*``)."""
+    ``inception_v3``, ``squeezenet*``), or ``SegNet`` (the seg trainer's)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     if arch in ("vit_b16", "vit_s16", "ViT"):
@@ -202,11 +203,13 @@ def state_dict_from_flax(variables, arch: str) -> Dict[str, torch.Tensor]:
         out = _resnet_state_dict(params, stats, torchvision=arch[:1].islower())
     elif _zoo_rename(arch) is not None:
         out = _zoo_state_dict(params, stats, _zoo_rename(arch))
+    elif arch == "SegNet":
+        out = _zoo_state_dict(params, stats, lambda path, siblings: ".".join(path))
     else:
         raise NotImplementedError(
             f"state_dict_from_flax handles ResNet*, resnet*, resnext*, wide_resnet*, "
-            f"wrn28_10*, WRN, efficientnet_*, EfficientNet, vit_b16, vit_s16, ViT and the "
-            f"zoo's {', '.join(ZOO_PREFIXES)}, not {arch!r}")
+            f"wrn28_10*, WRN, efficientnet_*, EfficientNet, vit_b16, vit_s16, ViT, SegNet "
+            f"and the zoo's {', '.join(ZOO_PREFIXES)}, not {arch!r}")
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in out.items()}
 
 

@@ -11,6 +11,7 @@ setup(
         "nbdt_tpu.native": ["*.cpp"],
         "nbdt_tpu": ["hierarchies/*/*.json", "wnids/*.txt"],
         "nbdt_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "nbdt_torch.native": ["*.cpp"],
     },
     include_package_data=True,
     python_requires=">=3.10",

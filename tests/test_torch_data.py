@@ -167,8 +167,7 @@ def test_cifar_reads_pickles_and_raises_when_missing(tmp_path):
         with pytest.raises(FileNotFoundError):
             getattr(td, cls)(root=str(tmp_path / "missing"))
     assert td.get_dataset("CIFAR10") is td.CIFAR10
-    with pytest.raises(KeyError):
-        td.get_dataset("Cityscapes")  # segmentation data: ROADMAP A16
+    assert td.get_dataset("Cityscapes") is td.Cityscapes  # the port's seg dataset
 
 
 def _write_png(path, rng, size):

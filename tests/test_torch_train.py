@@ -97,11 +97,21 @@ def _assert_state_matches(port_state, jax_variables, init_variables, counts, ste
 
 @pytest.mark.parametrize("loss", ["CrossEntropyLoss", "SoftTreeSupLoss", "HardTreeSupLoss",
                                   "SoftTreeLoss"])
-def test_three_host_fed_steps_match_jax(loss, tmp_path):
+def test_three_host_fed_steps_match_jax(loss, tmp_path, monkeypatch):
+    """The port's loader runs its numpy path here (the JAX one takes its
+    native augment), so the port's batches are within 2.4e-7 of JAX's. On
+    JAX's own bits (the port's native path, held bitwise by
+    tests/test_torch_native.py) one ReLU input of layer1.0.bn1 lies 3.3e-7
+    from 0 at step 2 and takes the other branch in the port: layer1.0.conv1's
+    gradient moves by 1.8% and bn1.bias by 1.3e-4 after 3 steps. Both sides
+    compute the same f32 function; rounding picks the branch at the kink
+    (ROADMAP.md, section C)."""
     from nbdt_tpu.trainer import TrainConfig as JConfig, Trainer as JTrainer
 
+    from nbdt_torch import native
     from nbdt_torch.trainer import TrainConfig, Trainer
 
+    monkeypatch.setattr(native, "_load", lambda: None)
     module, variables = _init()
     jtree, ttree = _trees()
     kw = dict(dataset="CIFAR10", arch="ResNet10", batch_size=BATCH, epochs=7, loss=loss,
