@@ -43,7 +43,13 @@ batches, with ``shard_serving`` of the flagship serving fn at 8192; a
 (SoftSegNBDT and HardSegNBDT over the seg trainer's SegNet at 2,097,152
 pixels a request: 150 classes at 512x512 on the ADE20K HRNet-w48 tree and 19
 at 512x1024 on Cityscapes'; the seg trainer at PascalContext's shape, 59
-classes at 480px, batch 8, and its CLI), beside a native phase that holds the
+classes at 480px, batch 8, and its CLI), and the ImageNet training path
+(``python -m nbdt_torch.examples.train_imagenet`` on the resnet18 config at
+224px, 1000 classes, batch 256 and on resnet50's; the first step card vs CPU;
+the classifier split over two ranks sharing the card at ``--tp 2``), and the
+host paths of the converter (torch -> msgpack -> torch) and the examples
+(``load_pretrained``, the HTTP app on a free port, ``vis_demo``), beside a
+native phase that holds the
 host input pipeline's C++ kernels (``nbdt_torch.native``) against numpy and
 checks that the host-fed training run went through them. Builds every
 hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
@@ -58,8 +64,9 @@ layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
 its f32 gate, its serving fn, the conv probe path (one request, then the
 probe's parity and timing phases), the training path, the WRN-28-10 serving
 and training path, the zero-shot path, the ImageNet path, the zoo path, the
-export path, the parallel path, the segmentation path, times; the native
-phase runs after the training path.
+export path, the parallel path, the segmentation path, the ImageNet
+training path with its tp pair, the converter and examples, times; the
+native phase runs after the training path.
 """
 
 from __future__ import annotations
@@ -91,7 +98,7 @@ from nbdt_torch.data import (DataLoader, LearnableSyntheticDataset, PrefetchLoad
                              SegDataLoader, SyntheticSegDataset)
 from nbdt_torch.data.transforms import (CIFAR_MEAN, CIFAR_STD, IMAGENET_MEAN, IMAGENET_STD,
                                         augment_uint8, normalize)
-from nbdt_torch.examples import train_seg
+from nbdt_torch.examples import load_pretrained, train_imagenet, train_seg, vis_demo
 from nbdt_torch.hierarchy.digraph import Digraph
 from nbdt_torch.hierarchy.generate import find_classifier
 from nbdt_torch.main import main as train_cli
@@ -292,6 +299,22 @@ SEG_TIE = 1e-5
 SEG_TIMED = 5
 SEG_CLASSES, SEG_IMAGE, SEG_CROP, SEG_BATCH, SEG_STEPS = 59, 520, 480, 8, 8
 SEG_LOSS_TOL = 1e-4  # the first step's loss, card vs CPU (the same f32 step)
+# ImageNet training path (examples/imagenet/train.py's port, ROADMAP A13b):
+# the resnet18 config at its width (224px, 1000 classes, batch 256) for 2
+# epochs of the example's 2 synthetic steps, resnet50's for 1; card vs CPU
+# on the first step at IMT_XSTEP_BATCH (a CPU step at 256 takes too long);
+# the tp pair's 4 steps against a one-rank run with cuDNN deterministic
+IMT_CONFIGS = Path(__file__).resolve().parent / "examples" / "imagenet" / "configs"
+IMT_EPOCHS = 2
+IMT_XSTEP_BATCH = 32
+IMT_RTOL = 1e-4  # the first step's loss card vs CPU, and the tp ranks' against one rank
+IMT_STATE_TOL = 1e-2  # the first step's update card vs CPU: L2 of the difference / of the update
+IMT_DEADLINE = 150  # seconds for the tp pair; a rank that dies kills its sibling
+# The tp pair's epochs (2 steps each): the config feeds raw 0-255 pixels at a
+# peak rate of 0.4, so the loss grows step on step and f32 rounding of any two
+# runs parts fast (a CPU rehearsal at 32px: 1.7e-6 at step 3, 1.7e-3 at 4);
+# steps 1 and 2 hold the split forward and, after one update, its backward
+IMT_TP_EPOCHS = 1
 # Native phase (ROADMAP A10): the host kernels at the training path's batch
 # of 32px CIFAR images; gather from a store of TRAIN_SIZE images
 NATIVE_TOL = 1e-6  # tests/test_native.py's: the kernel normalizes through a table
@@ -2336,20 +2359,21 @@ dist.destroy_process_group()
 """
 
 
-def launch_pair(workdir: Path) -> list:
-    """Runs PAR_WORKER as ranks 0 and 1; returns their results. Fails when
-    either rank fails or the pair outlives PAR_DEADLINE: a rank that dies
+def launch_pair(workdir: Path, worker: str = PAR_WORKER, deadline: float = PAR_DEADLINE) -> list:
+    """Runs ``worker`` as ranks 0 and 1; returns their results. Fails when
+    either rank fails or the pair outlives ``deadline``: a rank that dies
     leaves its sibling blocked in a collective, so the sibling is killed."""
     script = workdir / "worker.py"
-    script.write_text(PAR_WORKER)
+    script.write_text(worker)
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(Path(__file__).resolve().parent),
                                                       env.get("PYTHONPATH")]))
+    env["PYTHONUNBUFFERED"] = "1"  # a rank killed at the deadline keeps what it printed
     procs = [subprocess.Popen([sys.executable, str(script), str(workdir), str(r)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                               env=env) for r in range(2)]
-    deadline = time.monotonic() + PAR_DEADLINE
+    deadline = time.monotonic() + deadline
     try:
         while time.monotonic() < deadline:
             codes = [p.poll() for p in procs]
@@ -2363,9 +2387,9 @@ def launch_pair(workdir: Path) -> list:
         outs = [p.communicate()[0] for p in procs]
     for r, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            print(f"[parallel] rank {r} exited {p.returncode}:\n{out[-4000:]}", flush=True)
+            print(f"[pair] rank {r} exited {p.returncode}:\n{out[-4000:]}", flush=True)
     check(all(p.returncode == 0 for p in procs),
-          f"(d) ranks exited {[p.returncode for p in procs]}")
+          f"{workdir.name}: ranks exited {[p.returncode for p in procs]}")
     return [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(2)]
 
 
@@ -2901,6 +2925,409 @@ def run_native_phase(train: dict) -> dict:
             "host_fed_host_ms_per_step": step["host_ms_per_step"]}
 
 
+class StepRecorder:
+    """Wraps ``train_imagenet.make_train_step`` while active: each step's
+    CUDA events, host ms (the call's own: its launches, not their
+    completion), its start on the host clock (successive starts bound the
+    loop's period, the loader's batch and its copy to the card included)
+    and, once, the model's state after the first step."""
+
+    def __init__(self):
+        self.events, self.host_ms, self.starts, self.first_state = [], [], [], None
+
+    @contextlib.contextmanager
+    def active(self):
+        original = train_imagenet.make_train_step
+
+        def make(model, *args, **kw):
+            step = original(model, *args, **kw)
+
+            def recorded(*a):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                self.starts.append(t0)
+                start.record()
+                m = step(*a)
+                end.record()
+                self.host_ms.append((time.perf_counter() - t0) * 1e3)
+                self.events.append((start, end))
+                if self.first_state is None:
+                    self.first_state = {k: v.detach().cpu().clone()
+                                        for k, v in model.state_dict().items()}
+                return m
+
+            return recorded
+
+        train_imagenet.make_train_step = make
+        try:
+            yield self
+        finally:
+            train_imagenet.make_train_step = original
+
+    def device_ms(self, last: int) -> float:
+        """Mean device ms of the last ``last`` steps but the run's first (its
+        cuDNN and allocator set-up)."""
+        torch.cuda.synchronize()
+        events = self.events[max(1, len(self.events) - last):]
+        return float(np.mean([a.elapsed_time(b) for a, b in events]))
+
+    def period_ms(self, last: int) -> float:
+        """Host ms from one step's start to the next, over the last ``last``
+        steps (one epoch: no eval between them)."""
+        return float(np.mean(np.diff(self.starts[-last:]))) * 1e3
+
+
+def imagenet_main(argv: list, recorder: StepRecorder) -> tuple:
+    """``train_imagenet.main(argv)`` in this process, echoed: (its return
+    value, its standard output)."""
+    buf = io.StringIO()
+    try:
+        with recorder.active(), contextlib.redirect_stdout(buf):
+            out = train_imagenet.main(argv)
+    finally:
+        sys.stdout.write(buf.getvalue())
+        sys.stdout.flush()
+    return out, buf.getvalue()
+
+
+def imagenet_train_config(name: str, epochs: int) -> dict:
+    """One config through ``train_imagenet.main`` on the card: its epoch
+    lines, every step's loss finite, each step's learning rate the
+    schedule's, device ms a step (CUDA events, the last epoch's steps but
+    the run's first), host ms a step, images/s and peak device bytes."""
+    config = IMT_CONFIGS / f"{name}-nbdt.json"
+    cfg = json.loads(config.read_text())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = StepRecorder()
+    out, text = imagenet_main(["--config", str(config), "--synthetic", "--epochs",
+                               str(epochs)], rec)
+    steps_per_epoch = len(out["step_losses"]) // epochs
+    check(len(out["step_losses"]) == 2 * epochs
+          and all(math.isfinite(v) for v in out["step_losses"]),
+          f"[imagenet train] {name}: step losses {out['step_losses']}")
+    lr_at = train_imagenet.build_lr_schedule(cfg["optimizer"], steps_per_epoch, epochs)
+    want = [lr_at(i) for i in range(len(out["lrs"]))]
+    check(out["lrs"] == want, f"[imagenet train] {name}: learning rates {out['lrs']} against "
+                              f"the schedule's {want}")
+    lines = re.findall(r"epoch \d+: loss=.*", text)
+    check(len(lines) == epochs, f"[imagenet train] {name}: epoch lines {lines}")
+    device_ms = rec.device_ms(steps_per_epoch)
+    batch = cfg["batch_size"]
+    res = {"arch": cfg["model"]["arch"], "batch": batch, "image": cfg["model"]["image_size"],
+           "classes": cfg["model"]["num_classes"], "epochs": epochs,
+           "step_losses": out["step_losses"], "lrs": out["lrs"], "epoch_lines": lines,
+           "device_ms_per_step": device_ms,
+           "host_ms_per_step": float(np.mean(rec.host_ms[max(1, len(rec.host_ms)
+                                                             - steps_per_epoch):])),
+           "loop_ms_per_step": rec.period_ms(steps_per_epoch),
+           "images_per_s": batch / device_ms * 1e3,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "tree": Path(out["tree"].path_graph).name}
+    print(f"[imagenet train] {name}: {res['arch']} at {res['image']}px, {res['classes']} "
+          f"classes, batch {batch}, tree {res['tree']}: {res['device_ms_per_step']:.3f} device "
+          f"ms/step, {res['host_ms_per_step']:.3f} host ms/step (the step's launches), "
+          f"{res['loop_ms_per_step']:.3f} ms from one step's start to the next (the batch's "
+          f"copy to the card included), {res['images_per_s']:.1f} images/s on device time, "
+          f"peak {res['peak_device_bytes']} device bytes; learning rates {out['lrs']} = the "
+          f"schedule's", flush=True)
+    return res, out
+
+
+def run_imagenet_training(workdir: Path) -> dict:
+    """The ImageNet training path (``python -m nbdt_torch.examples.train_imagenet``,
+    ROADMAP A13b): the resnet18 config at its published width for
+    IMT_EPOCHS epochs, the resnet50 config for 1; the first step card vs
+    CPU; the tree products at "highest"; the efficientnet_b7b config's
+    schedule (not trained here: its f32 activations at batch 128 and 224px
+    come near the card's 80 GB). No kernel launches. Then the tp pair."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    out = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    out["resnet18"], r18 = imagenet_train_config("resnet18", IMT_EPOCHS)
+    out["resnet50"], _ = imagenet_train_config("resnet50", 1)
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    print(f"[imagenet train] kernel launches over the two configs' runs: "
+          f"{json.dumps(out['launches'])}", flush=True)
+    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"imagenet training path launches {out['launches']}")
+
+    # the tree products of the trained resnet18, forward and backward
+    model, tree = r18["model"], r18["tree"]
+    jt = to_device_tree(tree.arrays, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    x = torch.randint(0, 256, (8, 224, 224, 3), generator=gen, device="cuda").float()
+    y = torch.randint(0, 1000, (8,), generator=gen, device="cuda")
+    out["tree_products_at_highest"] = check_tree_matmul_precision(model, x, y, jt)
+    print(f"[imagenet train] the {out['tree_products_at_highest']} tree-loss products on the "
+          f"1000-class tree ran at \"highest\" under a caller's \"medium\"", flush=True)
+    # where a step's device time goes: the example's step at rate 0 (the
+    # weights stay), on a batch already on the card
+    step = train_imagenet.make_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=0.0, momentum=0.9, weight_decay=1e-4),
+        lambda count: 0.0, "SoftTreeSupLoss", jt, tsw=5.0)
+    xb = torch.randint(0, 256, (256, 224, 224, 3), generator=gen, device="cuda").float()
+    yb = torch.randint(0, 1000, (256,), generator=gen, device="cuda")
+    print_profile("resnet18 config step (batch 256, 224px, f32, the batch on the card)",
+                  *profile_ms(lambda: step(xb, yb, 5.0, 1.0, 0), n=3))
+    del model, r18, step, xb
+
+    # the first step, card vs CPU
+    config = str(IMT_CONFIGS / "resnet18-nbdt.json")
+    first = {}
+    for dev in ("cuda", "cpu"):
+        rec = StepRecorder()
+        t0 = time.perf_counter()
+        with rec.active(), contextlib.redirect_stdout(io.StringIO()):
+            run = train_imagenet.main(["--config", config, "--synthetic", "--epochs", "1",
+                                       "--batch-size", str(IMT_XSTEP_BATCH), "--device", dev])
+        first[dev] = (run["step_losses"][0], rec.first_state, time.perf_counter() - t0)
+    rel = abs(first["cuda"][0] - first["cpu"][0]) / abs(first["cpu"][0])
+    init = train_imagenet.init_model("resnet18", 1000, (224, 224, 3), device="cpu").state_dict()
+    params = [k for k, _ in init.items() if not k.endswith(("running_mean", "running_var",
+                                                            "num_batches_tracked"))]
+    cuda, cpu = first["cuda"][1], first["cpu"][1]
+    update_err = (sum(float(((cuda[k] - cpu[k]) ** 2).sum()) for k in params)
+                  / sum(float(((cpu[k] - init[k]) ** 2).sum()) for k in params)) ** 0.5
+    worst = max((float((cuda[k] - cpu[k]).abs().max())
+                 / max(float((cpu[k] - init[k]).abs().max()), 1e-30),
+                 k) for k in params)
+    check(rel <= IMT_RTOL, f"[imagenet train] card vs CPU first step: loss "
+                           f"{first['cuda'][0]} vs {first['cpu'][0]}")
+    check(update_err <= IMT_STATE_TOL, f"[imagenet train] card vs CPU update of the first step: "
+                                       f"{update_err} (worst tensor {worst})")
+    out["card_vs_cpu"] = {"batch": IMT_XSTEP_BATCH, "loss_cuda": first["cuda"][0],
+                          "loss_cpu": first["cpu"][0], "relative": rel,
+                          "update_rel_l2": update_err, "worst_tensor": worst,
+                          "cpu_seconds": first["cpu"][2]}
+    print(f"[imagenet train] first step of the resnet18 config at batch {IMT_XSTEP_BATCH}, card "
+          f"vs CPU: loss {first['cuda'][0]:.7f} vs {first['cpu'][0]:.7f} (relative {rel:.3g}, "
+          f"tolerance {IMT_RTOL}); the step's update (L2 over the parameters) {update_err:.3g} "
+          f"apart (tolerance {IMT_STATE_TOL}; worst tensor {worst[1]}, its largest entry "
+          f"difference {worst[0]:.3g} of its largest update); the CPU run took "
+          f"{first['cpu'][2]:.1f} s", flush=True)
+
+    # the efficientnet_b7b config: parsed, its schedule checked, not trained
+    cfg = json.loads((IMT_CONFIGS / "efficientnet_b7b-nbdt.json").read_text())
+    lr_cfg = cfg["optimizer"]["lr"]
+    lr_at = train_imagenet.build_lr_schedule(cfg["optimizer"], 5005, cfg["num_epochs"])
+    warmup = int(5005 * cfg["num_epochs"] * lr_cfg["warmup_frac"])
+    for i, m in enumerate(lr_cfg["milestones"]):
+        got = [lr_at(m * 5005 + d) for d in (-1, 0, 1)]
+        check(np.allclose(got, [lr_cfg["values"][i]] + [lr_cfg["values"][i + 1]] * 2,
+                          rtol=1e-9), f"[imagenet train] b7b schedule at epoch {m}: {got}")
+    check(np.allclose([lr_at(0), lr_at(warmup)], [lr_cfg["start_value"], lr_cfg["values"][0]],
+                      rtol=1e-9), f"[imagenet train] b7b warmup: {lr_at(0)}, {lr_at(warmup)}")
+    out["efficientnet_b7b"] = {"arch": cfg["model"]["arch"], "batch": cfg["batch_size"],
+                               "warmup_steps": warmup, "trained": False}
+    print(f"[imagenet train] efficientnet_b7b config: {cfg['model']['arch']} at batch "
+          f"{cfg['batch_size']}, {warmup} warmup steps of 5005x{cfg['num_epochs']}, decays at "
+          f"epochs {lr_cfg['milestones']} on their first steps; not trained here", flush=True)
+
+    out["tp"] = run_tp_pair(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+TP_WORKER = r"""
+import faulthandler, json, sys, time
+from pathlib import Path
+workdir, rank = Path(sys.argv[1]).resolve(), int(sys.argv[2])
+args = json.loads((workdir / "args.json").read_text())
+faulthandler.dump_traceback_later(args["deadline"] - 20, exit=True)  # every thread's stack
+import torch
+import torch.distributed as dist
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True  # a comparison
+from nbdt_torch.examples import train_imagenet
+from nbdt_torch.parallel import initialize_multihost
+
+store = f"file://{workdir / 'store'}"
+initialize_multihost(store, 2, rank, backend="gloo")  # NCCL refuses two ranks on one card
+events = []
+original = train_imagenet.make_train_step
+
+
+def make(*a, **kw):
+    step = original(*a, **kw)
+
+    def timed(*s):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(*s)
+        end.record()
+        events.append((start, end))
+        return m
+
+    return timed
+
+
+train_imagenet.make_train_step = make
+run = train_imagenet.main(["--config", args["config"], "--synthetic", "--epochs",
+                           str(args["epochs"]), "--tp", "2", "--multihost",
+                           "--coordinator-address", store, "--num-processes", "2",
+                           "--process-id", str(rank)])
+torch.cuda.synchronize()
+head = run["model"].fc
+out = {"backend": dist.get_backend(), "device": torch.cuda.current_device(),
+       "mesh": list(run["mesh"]), "losses": ["%.17g" % v for v in run["step_losses"]],
+       "head": type(head).__name__, "shard": list(head.weight.shape),
+       "bias": list(head.bias.shape),
+       "ms_per_step": [a.elapsed_time(b) for a, b in events]}
+(workdir / f"rank{rank}.json").write_text(json.dumps(out))
+dist.destroy_process_group()
+"""
+
+
+def run_tp_pair(workdir: Path) -> dict:
+    """A13b on the card: two ranks sharing it over gloo run the resnet18
+    config at ``--tp 2`` (dp=1, tp=2: 500 classes a rank) for IMT_TP_EPOCHS
+    epochs; their losses against a one-rank tp=1 run of the same steps,
+    both with cuDNN's deterministic algorithms."""
+    config = str(IMT_CONFIGS / "resnet18-nbdt.json")
+    with deterministic_cudnn(), contextlib.redirect_stdout(io.StringIO()):
+        ref = train_imagenet.main(["--config", config, "--synthetic", "--epochs",
+                                   str(IMT_TP_EPOCHS)])["step_losses"]
+    torch.cuda.empty_cache()
+    (workdir / "args.json").write_text(json.dumps({"config": config, "epochs": IMT_TP_EPOCHS,
+                                                   "deadline": IMT_DEADLINE}))
+    t0 = time.perf_counter()
+    r0, r1 = launch_pair(workdir, TP_WORKER, IMT_DEADLINE)
+    pair_s = time.perf_counter() - t0
+    check(r0["losses"] == r1["losses"], f"[tp] rank losses {r0['losses']} vs {r1['losses']}")
+    got = [float(v) for v in r0["losses"]]
+    check(len(got) == len(ref), f"[tp] {len(got)} steps against {len(ref)}")
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, ref))
+    check(rel <= IMT_RTOL, f"[tp] tp=2 losses {got} against one rank's {ref}")
+    for r in (r0, r1):
+        check(r["mesh"] == [1, 2] and r["head"] == "ColumnShardedLinear"
+              and r["shard"] == [500, 512] and r["bias"] == [1000],
+              f"[tp] rank's mesh and classifier: {r}")
+    ms = [r["ms_per_step"][-1] for r in (r0, r1)]  # the second step: the first sets up cuDNN
+    out = {"backend": r0["backend"], "mesh": r0["mesh"], "shard": r0["shard"],
+           "losses": got, "one_rank_losses": ref, "max_rel_loss_diff": rel,
+           "device_ms_per_step": ms, "seconds": pair_s}
+    print(f"[tp] two ranks on one card over {r0['backend']} (devices {r0['device']}, "
+          f"{r1['device']}), mesh dp=1 tp=2, classifier shard {r0['shard']} on each (bias "
+          f"{r0['bias']} whole): losses bit-identical on both ({', '.join(r0['losses'])}), within "
+          f"{rel:.3g} of one rank's (tolerance {IMT_RTOL}); {ms[0]:.3f} and {ms[1]:.3f} device "
+          f"ms/step (gloo through the host on one card: no measure of NCCL); the pair took "
+          f"{pair_s:.1f} s", flush=True)
+    return out
+
+
+def run_convert_and_examples(workdir: Path) -> dict:
+    """Host paths on the card's machine: the convert CLI torch -> msgpack ->
+    torch on a seeded resnet18, bit for bit, with neither flax nor msgpack
+    installed; ``load_pretrained`` on a seeded checkpoint and PNG on the
+    card (and on the CPU); the HTTP app on a free port of localhost, one
+    POST of that PNG; ``vis_demo``'s two pages. No kernel launches."""
+    import importlib.util
+    import urllib.request
+
+    from PIL import Image
+
+    from nbdt_torch.models import resnet18
+    from nbdt_torch.serialization import read_msgpack
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {"flax_installed": importlib.util.find_spec("flax") is not None,
+           "msgpack_installed": importlib.util.find_spec("msgpack") is not None}
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH")]))}
+
+    # [convert] torch -> msgpack -> torch
+    torch.manual_seed(81)
+    model = resnet18(1000)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if b.is_floating_point():
+                b.copy_(torch.rand_like(b) + (0.5 if name.endswith("running_var") else -0.5))
+    src, mid, back = workdir / "seeded.pth", workdir / "x.msgpack", workdir / "back.pth"
+    torch.save({"net": model.state_dict()}, src)
+    t0 = time.perf_counter()
+    for a, b in ((src, mid), (mid, back)):
+        proc = subprocess.run([sys.executable, "-m", "nbdt_torch.models.convert", str(a),
+                               "--arch", "resnet18", "--out", str(b)], env=env,
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"[convert] {a.name} -> {b.name}: {proc.stderr[-2000:]}")
+    tree = read_msgpack(mid)
+    got = torch.load(back, weights_only=True)["net"]
+    want = {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
+    check(list(got) == list(want) and all(got[k].dtype == v.dtype and torch.equal(got[k], v)
+                                          for k, v in want.items()),
+          "[convert] the round trip torch -> msgpack -> torch is not bitwise")
+    out["convert"] = {"msgpack_bytes": mid.stat().st_size, "tensors": len(want),
+                      "top_keys": list(tree), "seconds": time.perf_counter() - t0}
+    print(f"[convert] python -m nbdt_torch.models.convert seeded.pth --arch resnet18 --out "
+          f"x.msgpack ({out['convert']['msgpack_bytes']} bytes, {list(tree)}), then back to "
+          f".pth: {len(want)} tensors bit for bit; flax installed: {out['flax_installed']}, "
+          f"msgpack installed: {out['msgpack_installed']}; "
+          f"{out['convert']['seconds']:.1f} s", flush=True)
+
+    # [examples] load_pretrained, the app, vis_demo
+    torch.manual_seed(82)
+    cifar = ResNet18(10)
+    pth, png = workdir / "cifar.pth", workdir / "image.png"
+    torch.save({"net": cifar.state_dict()}, pth)
+    Image.fromarray(np.random.RandomState(83).randint(0, 256, (32, 32, 3), dtype=np.uint8)).save(
+        png)
+    argv = [str(png), "--arch", "ResNet18", "--dataset", "CIFAR10", "--checkpoint", str(pth)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        lines = load_pretrained.main(argv)
+        cpu_lines = load_pretrained.main(argv + ["--device", "cpu"])
+    check(lines == cpu_lines and lines[0].startswith("Prediction: "),
+          f"[examples] load_pretrained on the card {lines}, on the CPU {cpu_lines}")
+    out["load_pretrained"] = lines
+    print(f"[examples] load_pretrained on the card (equal to the CPU's): {' // '.join(lines)}",
+          flush=True)
+
+    proc = subprocess.Popen([sys.executable, "-m", "nbdt_torch.examples.app", "--checkpoint",
+                             str(pth), "--arch", "ResNet18", "--port", "0"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        port = re.fullmatch(r"Serving NBDT on :(\d+)\s*", line)
+        check(port is not None, f"[examples] the app printed {line!r}")
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{port.group(1)}/",
+                                     data=png.read_bytes(), headers={"Content-Type": "image/png"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            answer = json.loads(resp.read())
+        post_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    check(f"Prediction: {answer.get('prediction')}" == lines[0],
+          f"[examples] the app answered {answer}, load_pretrained {lines[0]}")
+    out["app"] = {"answer": answer, "post_ms": post_ms}
+    print(f"[examples] app on port {port.group(1)}: POST of the PNG -> {json.dumps(answer)} "
+          f"({post_ms:.1f} ms), the prediction load_pretrained printed", flush=True)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        pages = vis_demo.main(str(workdir / "vis"))
+    sizes = {Path(p).name: Path(p).stat().st_size for p in pages}
+    check(len(sizes) == 2 and all(sizes.values()), f"[examples] vis_demo wrote {sizes}")
+    out["vis_demo"] = sizes
+    print(f"[examples] vis_demo wrote {sizes}", flush=True)
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"convert and examples launches {out['launches']}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def time_path_head(feats: torch.Tensor, hc: st.HeadConstants, label: str) -> dict:
     """B1 on a path's own features and classifier (f32 W): the kernel, its
     plain version and, as a yardstick for the classifier alone,
@@ -3112,6 +3539,18 @@ def main() -> int:
     seg = run_seg_path()
     seg["seconds"] = time.perf_counter() - t0
     print(f"[seg] the segmentation path took {seg['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    imagenet_train = run_imagenet_training(
+        Path(__file__).resolve().parent / "build" / "chip_smoke_imt")
+    imagenet_train["seconds"] = time.perf_counter() - t0
+    print(f"[imagenet train] the ImageNet training path took {imagenet_train['seconds']:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    examples = run_convert_and_examples(
+        Path(__file__).resolve().parent / "build" / "chip_smoke_examples")
+    examples["seconds"] = time.perf_counter() - t0
+    print(f"[examples] the convert and examples path took {examples['seconds']:.1f} s",
+          flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -3160,6 +3599,8 @@ def main() -> int:
         "export": export,
         "parallel": parallel,
         "segmentation": seg,
+        "imagenet_train": imagenet_train,
+        "convert_examples": examples,
         "native": native_rec,
         "card": smi}}), flush=True)
 
@@ -3247,6 +3688,8 @@ def main() -> int:
         "launches_on_export_path": export["launches"]["soft_head"],
         "launches_on_parallel_path": parallel["launches"]["soft_head"],
         "launches_on_segmentation_path": seg["launches"]["soft_head"],
+        "launches_on_imagenet_train_path": imagenet_train["launches"]["soft_head"],
+        "launches_on_examples_path": examples["launches"]["soft_head"],
         "instance_by_shape": {"resnet18": head_resnet[f32]["instance"],
                               "vit_b16": head_vit[f32]["instance"],
                               "cifar100_d2048": head_wide[f32]["instance"],
@@ -3276,6 +3719,8 @@ def main() -> int:
         "launches_on_export_path": export["launches"]["layernorm"],
         "launches_on_parallel_path": parallel["launches"]["layernorm"],
         "launches_on_segmentation_path": seg["launches"]["layernorm"],
+        "launches_on_imagenet_train_path": imagenet_train["launches"]["layernorm"],
+        "launches_on_examples_path": examples["launches"]["layernorm"],
         "max_abs_err": ln_err[f32],
         "ms": ln_t[f32]["ms"],
         "plain_ms": ln_t[f32]["plain_ms"],
@@ -3299,6 +3744,8 @@ def main() -> int:
         "launches_on_export_path": export["launches"]["conv3x3"],
         "launches_on_parallel_path": parallel["launches"]["conv3x3"],
         "launches_on_segmentation_path": seg["launches"]["conv3x3"],
+        "launches_on_imagenet_train_path": imagenet_train["launches"]["conv3x3"],
+        "launches_on_examples_path": examples["launches"]["conv3x3"],
         "max_abs_err": conv_err,
         "ms": conv_t["kernel"]["ms"],
         "plain_ms": conv_t["plain"]["ms"],

@@ -13,7 +13,7 @@ from __future__ import annotations
 import json
 import os
 
-from ..utils import makeparentdirs
+from ..utils import ASSETS_ROOT, get_directory, makeparentdirs
 
 _WORDNET_CHECKED = False
 _WORDNET_AVAILABLE = False
@@ -214,6 +214,11 @@ def wnid_to_name(wnid: str) -> str:
 def get_wnids(path_wnids) -> list:
     with open(str(path_wnids)) as f:
         return [wnid.strip() for wnid in f.readlines() if wnid.strip()]
+
+
+def get_wnids_from_dataset(dataset: str, root: str = str(ASSETS_ROOT / "wnids")) -> list:
+    """The wnids of ``root/dataset.txt``; by default the vendored list."""
+    return get_wnids(f"{get_directory(dataset, root)}.txt")
 
 
 def write_wnids(wnids, path) -> None:

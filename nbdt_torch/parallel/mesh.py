@@ -5,8 +5,9 @@ Counterpart of ``nbdt_tpu/parallel/mesh.py``. The mesh is a
 ``("dp", "tp")``. One process drives one card, so a mesh over N cards is N
 processes (``torchrun --nproc-per-node N -m nbdt_torch.main --multihost``):
 where JAX's single process spans every local chip, here each rank holds its
-own dp rows and DDP all-reduces the gradients. ``tp`` is plumbed through as
-in JAX; the tensor-sharded classifier is ROADMAP A13b.
+own dp rows and DDP all-reduces the gradients. With ``tp > 1``,
+``shard_params(..., tp_shard_classifier=True)`` splits a ResNet's classes
+over the tp ranks (:mod:`nbdt_torch.parallel.tp`).
 """
 
 from __future__ import annotations
@@ -85,15 +86,19 @@ def shard_params(mesh: DeviceMesh, model: torch.nn.Module,
                  tp_shard_classifier: bool = False) -> torch.nn.Module:
     """Replicate ``model`` over the mesh: every parameter and buffer is
     broadcast from global rank 0 (in place), so each rank starts from rank
-    0's weights. The tensor-sharded classifier (``tp_shard_classifier``) is
-    ROADMAP A13b."""
-    if tp_shard_classifier:
-        raise NotImplementedError("tp_shard_classifier: the tensor-sharded classifier is not "
-                                  "ported to nbdt_torch yet (ROADMAP A13b)")
+    0's weights. ``tp_shard_classifier``: then each ResNet head (the JAX
+    package's ``linear`` kernels, and nothing else) is split over the
+    mesh's ``tp`` axis by :func:`~nbdt_torch.parallel.tp.shard_classifier`;
+    at ``tp=1`` it stays whole."""
     with torch.no_grad():
         for t in list(model.parameters()) + list(model.buffers()):
             flat = t.data.contiguous()  # a channels-last weight is sent as a dense copy
             dist.broadcast(flat, src=0)
             if flat is not t.data:
                 t.data.copy_(flat)
+    tp = mesh.size(1)
+    if tp_shard_classifier and tp > 1:
+        from .tp import shard_classifier
+
+        shard_classifier(model, mesh.get_group("tp"), mesh.get_local_rank("tp"), tp)
     return model

@@ -78,6 +78,12 @@ def dataset_to_default_path_wnids(dataset: str) -> str:
     return os.path.join(ASSETS_ROOT, f"wnids/{dataset}.txt")
 
 
+def get_directory(dataset: str, root: str = str(ASSETS_ROOT / "hierarchies")) -> str:
+    """``root/dataset``; by default the dataset's directory of vendored
+    hierarchies."""
+    return os.path.join(root, dataset)
+
+
 def makeparentdirs(path) -> None:
     os.makedirs(Path(path).parent, exist_ok=True)
 
@@ -156,6 +162,37 @@ def progress_bar(current: int, total: int, msg: str = "", width: int = 40):
     if current + 1 >= total:
         _bar_state["start"] = None
         _bar_state["last"] = None
+
+
+def format_time(seconds: float) -> str:
+    """A duration as at most its two most significant nonzero units of
+    D/h/m/s/ms ("1D5m", "2m3s", "0ms"), the reference's format."""
+    days, seconds = int(seconds / 3600 / 24), seconds % (3600 * 24)
+    hours, seconds = int(seconds / 3600), seconds % 3600
+    minutes, seconds = int(seconds / 60), seconds % 60
+    whole = int(seconds)
+    millis = int((seconds - whole) * 1000)
+    parts = [f"{v}{unit}" for v, unit in ((days, "D"), (hours, "h"), (minutes, "m"),
+                                          (whole, "s"), (millis, "ms")) if v > 0]
+    return "".join(parts[:2]) or "0ms"
+
+
+def get_mean_and_std(dataset):
+    """Per-channel ``(mean, std)`` in [0, 1] units of a dataset of ``(HWC
+    image, label)`` pairs: the average over samples of each sample's
+    channel mean and unbiased std (the reference's estimator, not the
+    pooled one); uint8 images are scaled by 1/255 first."""
+    import numpy as np
+
+    mean = np.zeros(3, dtype=np.float64)
+    std = np.zeros(3, dtype=np.float64)
+    for i in range(len(dataset)):
+        x = np.asarray(dataset[i][0])
+        if x.dtype == np.uint8:
+            x = x.astype(np.float32) / 255.0
+        mean += x.mean(axis=(0, 1))
+        std += x.std(axis=(0, 1), ddof=1)
+    return mean / len(dataset), std / len(dataset)
 
 
 def load_image_from_path(path):

@@ -190,8 +190,8 @@ def test_centers_from_msgpack_match_jax(tmp_path, arch, img):
 
 def test_convert_cli_writes_a_strict_pth(resnet10, tmp_path, capsys):
     """python -m nbdt_torch.models.convert: a .msgpack in, a .pth out that
-    the port's module loads strictly; the torch -> flax direction exits
-    naming its ROADMAP item."""
+    the port's module loads strictly; the torch -> flax direction writes
+    that .pth back as flax's bytes of the JAX package's conversion."""
     from nbdt_torch.model import load_checkpoint
     from nbdt_torch.models import ResNet10
     from nbdt_torch.models.convert import main
@@ -206,5 +206,9 @@ def test_convert_cli_writes_a_strict_pth(resnet10, tmp_path, capsys):
     fresh.load_state_dict(load_checkpoint(out), strict=True)
     for k, v in port.state_dict().items():
         torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
-    with pytest.raises(SystemExit, match="ROADMAP A17"):
-        main([str(out), "--arch", "ResNet10", "--out", str(tmp_path / "back.msgpack")])
+    from nbdt_tpu.models.convert import torch_state_dict_to_flax
+    from nbdt_tpu.models.utils import load_torch_checkpoint
+
+    main([str(out), "--arch", "ResNet10", "--out", str(tmp_path / "back.msgpack")])
+    assert (tmp_path / "back.msgpack").read_bytes() == flax.serialization.to_bytes(
+        torch_state_dict_to_flax(load_torch_checkpoint(str(out)), arch="ResNet10"))
