@@ -48,7 +48,14 @@ classes at 480px, batch 8, and its CLI), and the ImageNet training path
 224px, 1000 classes, batch 256 and on resnet50's; the first step card vs CPU;
 the classifier split over two ranks sharing the card at ``--tp 2``), and the
 host paths of the converter (torch -> msgpack -> torch) and the examples
-(``load_pretrained``, the HTTP app on a free port, ``vis_demo``), beside a
+(``load_pretrained``, the HTTP app on a free port, ``vis_demo``), and the
+release path (``python -m nbdt_torch.tools.verify_release``, the
+released-checkpoint parity harness, through its ``main`` on the four rows
+of its published table: WRN-28-10 on CIFAR10, CIFAR100 and
+TinyImagenet200 at 10,000 synthetic images each and EfficientNet-B7b on
+Imagenet1000 at 224px on 1,024, from seeded checkpoints; its verdict
+against its own numbers, the card against the CPU, the fused head held to
+its soft argmax, ``--val real`` on a staged CIFAR10 test batch), beside a
 native phase that holds the
 host input pipeline's C++ kernels (``nbdt_torch.native``) against numpy and
 checks that the host-fed training run went through them. Builds every
@@ -65,8 +72,8 @@ its f32 gate, its serving fn, the conv probe path (one request, then the
 probe's parity and timing phases), the training path, the WRN-28-10 serving
 and training path, the zero-shot path, the ImageNet path, the zoo path, the
 export path, the parallel path, the segmentation path, the ImageNet
-training path with its tp pair, the converter and examples, times; the
-native phase runs after the training path.
+training path with its tp pair, the converter and examples, the release
+path, times; the native phase runs after the training path.
 """
 
 from __future__ import annotations
@@ -108,8 +115,9 @@ from nbdt_torch.ops import conv3x3 as conv
 from nbdt_torch.ops import layernorm as ln
 from nbdt_torch.ops import soft_traversal as st
 from nbdt_torch.rules import (HardEmbeddedDecisionRules, SoftEmbeddedDecisionRules,
-                              get_all_node_outputs, to_device_tree)
+                              get_all_node_outputs, soft_leaf_log_probs, to_device_tree)
 from nbdt_torch.tools import probe_pallas_conv as probe
+from nbdt_torch.tools import verify_release as vr
 from nbdt_torch.tools.count_work import PEAK_BYTES_PER_S, PEAK_F32_FLOPS, head_bound_ms
 from nbdt_torch.trainer import TrainConfig, Trainer, lr_schedule, make_optimizer, make_train_step
 from nbdt_torch.tree import Tree
@@ -322,6 +330,27 @@ NATIVE_TIMED = 20
 # The host-fed ResNet18 step (epoch 1, device ms) when the loader ran numpy,
 # on an H100 80GB HBM3 at 700 W (PERF.md section 5), printed beside this run's
 NUMPY_HOST_FED_MS = 64.69
+# Release path (``python -m nbdt_torch.tools.verify_release``, the port of
+# tools/verify_release.py): the four rows of the tool's published table at
+# their published widths, through its main(argv), f32 with TF32 off: (row,
+# arch, dataset, synthetic val images on the card, images of the
+# card-vs-CPU runs). R1-R3 take the size of the real val splits (10,000);
+# R4 takes 1,024 of ImageNet's 50,000 (the tool transforms each image on
+# the host, and 50,000 at 224px do not fit the time limit). The CPU runs
+# take fewer images, since the CPU pays for them.
+RELEASE_ROWS = (
+    ("R1", "wrn28_10_cifar10", "CIFAR10", 10000, 256),
+    ("R2", "wrn28_10_cifar100", "CIFAR100", 10000, 256),
+    ("R3", "wrn28_10", "TinyImagenet200", 10000, 256),
+    ("R4", "efficientnet_b7b", "Imagenet1000", 1024, 64),
+)
+RELEASE_BATCH = 512  # the tool's default
+RELEASE_CAL = 64  # images that calibrate a seeded checkpoint's BatchNorm and classifier
+RELEASE_REAL = 10000  # CIFAR10's test_batch, staged for --val real
+RELEASE_CPU_THREADS = 6  # of the machine's 8 cores; the card's runs keep the rest
+RELEASE_DEADLINE = 600  # seconds the CPU worker may take past the card's runs
+# R3's checkpoint: the .pth that the WRN path's CLI trains on TinyImagenet200
+WRN_CLI_PTH = Path(__file__).resolve().parent / "build" / "chip_smoke_wrn_cli.pth"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1353,6 +1382,7 @@ def run_wrn_training(tree: Tree, workdir: Path) -> dict:
     eval_acc, text = run_cli(base + ["--eval", "--checkpoint-path", str(pth),
                                      "--analysis", "SoftEmbeddedDecisionRules"])
     check("Loaded pretrained weights" in text, "CLI --eval: the checkpoint was not loaded")
+    shutil.copy(pth, WRN_CLI_PTH)  # R3 of the release path
     cli_soft = nbdt_line(text, "NBDT-Soft")
     check(math.isfinite(eval_acc) and cli_soft[2] == 2 * WRN_CLI_BATCH,
           f"CLI --eval: accuracy {eval_acc}, NBDT-Soft {cli_soft}")
@@ -3328,6 +3358,391 @@ def run_convert_and_examples(workdir: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The release path: the port's released-checkpoint parity harness
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def watch_release_eval(rec: dict):
+    """Records the next run of the tool's dual-report eval (``vr._evaluate``,
+    wrapped for the block, its result unchanged) into ``rec``: the
+    classifier's input and output of every batch (the pooled features and
+    the tool's logits; the classifier is the one the probe finds), the
+    tool's own soft outputs, the eval's host wall, and on the card CUDA
+    events around each backbone pass."""
+    real = vr._evaluate
+
+    def evaluate(model, hard_rules, valset, batch_size):
+        backbone, rules = model.model, model.rules
+        feats, logits, soft, events = [], [], [], []
+
+        def record_soft(x):
+            out = rules(x)
+            soft.append(out.detach())
+            return out
+
+        def classifier_io(module, args, out):
+            feats.append(args[0].detach())
+            logits.append(out.detach())
+
+        handles = [find_classifier(backbone)[1].register_forward_hook(classifier_io)]
+        if model.device.type == "cuda":
+            def event(*_):
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+
+            handles += [backbone.register_forward_pre_hook(event),
+                        backbone.register_forward_hook(event)]
+            torch.cuda.synchronize()
+        model.rules = record_soft
+        t0 = time.perf_counter()
+        try:
+            top1 = real(model, hard_rules, valset, batch_size)
+        finally:
+            model.rules = rules
+            for h in handles:
+                h.remove()
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        rec.update(model=model, hard_rules=hard_rules, n=len(valset), top1=top1,
+                   wall_s=time.perf_counter() - t0, feats=torch.cat(feats),
+                   logits=torch.cat(logits), soft=torch.cat(soft),
+                   backbone_ms=[a.elapsed_time(b) for a, b in zip(events[::2], events[1::2])])
+        return top1
+
+    vr._evaluate = evaluate
+    try:
+        yield rec
+    finally:
+        vr._evaluate = real
+
+
+release_launches = dict.fromkeys(("soft_head", "layernorm", "conv3x3"), 0)
+
+
+def run_release_tool(argv: list, device: str = "cuda") -> tuple:
+    """``python -m nbdt_torch.tools.verify_release`` in this process on
+    ``device``, its eval watched (``watch_release_eval``): (exit code,
+    standard output, the watch's record, the JSON report of
+    ``--report-out``, seconds of the whole run, peak device bytes). Its
+    kernel launches, counted from 0, must be none; they add to
+    ``release_launches``."""
+    buf, rec = io.StringIO(), {}
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with watch_release_eval(rec), contextlib.redirect_stdout(buf):
+        rc = vr.main([*argv, "--device", device])
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    launches = read_launches()
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+          f"[release] the tool launched {launches}: {argv}")
+    for k, v in launches.items():
+        release_launches[k] += v
+    report = json.loads(Path(argv[argv.index("--report-out") + 1]).read_text())
+    return rc, buf.getvalue(), rec, report, seconds, peak
+
+
+def release_cpu_jobs(spec: str) -> None:
+    """The CPU side of the release path's card-vs-CPU gate, run in a worker
+    process beside the card's runs: each job of the JSON list at ``spec``
+    runs the tool on the CPU and saves its exit code, output and logits."""
+    for job in json.loads(Path(spec).read_text()):
+        rc, text, rec, *_ = run_release_tool(job["argv"], "cpu")
+        torch.save({"rc": rc, "stdout": text, "logits": rec["logits"],
+                    "seconds": rec["wall_s"]}, job["out"])
+
+
+RELEASE_WORKER = r"""
+import sys
+
+import torch
+
+torch.set_num_threads(int(sys.argv[2]))
+import chip_smoke
+
+chip_smoke.release_cpu_jobs(sys.argv[1])
+"""
+
+
+def seeded_release_model(ctor, classes: int, image: int, seed: int) -> torch.nn.Module:
+    """A backbone with seeded weights on the card: BatchNorm affine drawn by
+    ``randomize_batchnorm``, its statistics and the classifier calibrated on
+    RELEASE_CAL images of the tool's synthetic pixel distribution through
+    its val transform: each pixel 0.65 of one uniform draw and 0.35 of
+    another, as LearnableSyntheticDataset blends a uniform class template
+    with uniform noise (drawing its 1000 templates at 224px would take
+    seconds of the phase)."""
+    torch.manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    model = ctor(classes)
+    randomize_batchnorm(model, gen)
+    model = model.to("cuda", memory_format=torch.channels_last)
+    rng = np.random.RandomState(seed + 2)
+    shape = (RELEASE_CAL, image, image, 3)
+    u8 = (0.65 * rng.randint(0, 256, shape) + 0.35 * rng.randint(0, 256, shape)).astype(np.uint8)
+    x = torch.as_tensor(LearnableSyntheticDataset.transform_val()(u8), device="cuda")
+    calibrate_batchnorm(model, x)
+    calibrate_classifier(model, find_classifier(model)[1], x, gen)
+    return model.eval()
+
+
+def release_checkpoints(workdir: Path, r3: Path) -> dict:
+    """{row: checkpoint}: R1 and R2 seeded WRN-28-10s saved in the
+    reference's layout ({"net": module.-prefixed state dict, "acc",
+    "epoch"}) under their released file names, R3 the .pth that the WRN
+    path's CLI trained on TinyImagenet200, R4 a seeded EfficientNet-B7b
+    state dict in pytorchcv's keys."""
+    from nbdt_torch import model_urls
+    from nbdt_torch.models import efficientnet_b7b
+
+    ckpts = {}
+    for row, arch, dataset, ctor, classes, image, seed in (
+            ("R1", "wrn28_10_cifar10", "CIFAR10", wrn28_10_cifar10, 10, 32, 90),
+            ("R2", "wrn28_10_cifar100", "CIFAR100", wrn28_10_cifar100, 100, 32, 92),
+            ("R4", "efficientnet_b7b", "Imagenet1000", efficientnet_b7b, 1000, 224, 94)):
+        model = seeded_release_model(lambda n, c=ctor: c(num_classes=n), classes, image, seed)
+        sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        if row == "R4":
+            path = workdir / "efficientnet_b7b-seeded.pth"
+            torch.save(sd, path)
+        else:
+            path = workdir / model_urls[(arch, dataset)].rsplit("/", 1)[-1]
+            torch.save({"net": {f"module.{k}": v for k, v in sd.items()}, "acc": 0.0,
+                        "epoch": 0}, path)
+        ckpts[row] = path
+        del model
+    check(r3.exists(), f"[release] no checkpoint from the WRN path's CLI at {r3}")
+    ckpts["R3"] = r3
+    return ckpts
+
+
+def release_ties(logits: torch.Tensor, jt) -> torch.Tensor:
+    """[B] bool: rows where the backbone's two best classes, the soft rules'
+    two best leaves (log-probs) or some node's two best children are within
+    TOL: the only rows where an error that small can flip a prediction."""
+    outs = get_all_node_outputs(logits.float(), jt)
+    leaf = soft_leaf_log_probs(outs.log_probs, jt)
+
+    def gap(x):
+        top2 = x.topk(2, dim=-1).values
+        return top2[..., 0] - top2[..., 1]
+
+    nodes = torch.where(jt.child_mask[None], outs.logits, -torch.inf)
+    return (gap(logits.float()) <= TOL) | (gap(leaf) <= TOL) | (gap(nodes) <= TOL).any(-1)
+
+
+def release_b1_gate(row: str, rec: dict) -> dict:
+    """(c) B1 on the tool's run: SoftNBDT(fused=True) over the tool's own
+    backbone and tree, its head (B1) on the pooled features of every val
+    image that the tool's pass captured, in the tool's batches, against the
+    tool's soft outputs: argmax 1.0 on rows whose top-2 leaf log-probs
+    differ by more than TOL."""
+    model = rec["model"]
+    fused = SoftNBDT(model.dataset, model.model, arch=model.arch, tree=model.tree, fused=True,
+                     device=model.device)
+    feats = rec["feats"]
+    D, C = feats.shape[1], model.tree.arrays.num_classes
+    before = st.launches
+    leaf = torch.cat([st.fused_soft_head(f, fused._head, want_aux=False)[0]
+                      for f in feats.split(RELEASE_BATCH)])
+    launches = st.launches - before
+    want = rec["soft"].log()
+    agree, ties, raw = argmax_agreement(leaf, want, TOL)
+    err = float((leaf.exp() - rec["soft"]).abs().max())
+    print(f"[release] {row} (c) B1 on the tool's features (D={D}, C={C}, "
+          f"{st.last_launch['plan'].instance} instance, {launches} launches): argmax {agree} "
+          f"against the tool's soft rules ({ties} tie rows within {TOL}, raw {raw}), max "
+          f"|leaf prob diff| {err:.3g}", flush=True)
+    check(agree == 1.0, f"[release] {row} (c): B1 argmax agreement {agree}")
+    check(feats.shape[0] == rec["n"], f"[release] {row} (c): {feats.shape[0]} features captured "
+                                      f"of {rec['n']}")
+    return {"D": D, "C": C, "argmax_agreement": agree, "tie_rows": ties, "raw": raw,
+            "max_leaf_prob_diff": err, "gate_launches": launches,
+            "instance": st.last_launch["plan"].instance}
+
+
+def release_row(row: str, arch: str, dataset: str, n_val: int, ckpt: Path,
+                workdir: Path) -> dict:
+    """(a) and (c) of one row: the tool on the card in report-only mode,
+    then again against its own soft top-1 (tolerance 0.2) and transcript;
+    B1 on the first run's features; the first run's images/s, device ms a
+    batch, host share and peak memory."""
+    base = ["--checkpoint", str(ckpt), "--arch", arch, "--dataset", dataset, "--val",
+            "synthetic", "--synthetic-size", str(n_val), "--batch-size", str(RELEASE_BATCH)]
+    first = workdir / f"{row}-a.json"
+    rc, text, rec, report, seconds, peak = run_release_tool(
+        base + ["--report-out", str(first)])
+    top1 = [report[k] for k in ("backbone_top1", "nbdt_soft_top1", "nbdt_hard_top1")]
+    check(rc == 0 and text.rstrip().endswith("report only)") and report["pass"] is None,
+          f"[release] {row} (a) report-only run: exit {rc}, {text[-300:]!r}")
+    check(all(0.0 <= t <= 100.0 for t in top1) and report["n_val"] == n_val,
+          f"[release] {row} (a): top-1s {top1} of {report['n_val']} images")
+    busy = sum(rec["backbone_ms"])
+    perf = {"images_per_s": n_val / rec["wall_s"], "eval_s": rec["wall_s"],
+            "backbone_ms_per_batch": busy / len(rec["backbone_ms"]),
+            "batches": len(rec["backbone_ms"]), "host_share": 1.0 - busy / (rec["wall_s"] * 1e3),
+            "peak_bytes": peak, "run_s": seconds}
+    print(f"[release] {row} {arch} on {dataset} ({n_val} synthetic images, batch "
+          f"{RELEASE_BATCH}): {text.strip().splitlines()[0]}; eval {rec['wall_s']:.2f} s, "
+          f"{perf['images_per_s']:.1f} images/s, backbone {perf['backbone_ms_per_batch']:.3f} "
+          f"device ms a batch ({perf['batches']} batches), host share "
+          f"{perf['host_share']:.4f}, peak {peak / 1e9:.3f} GB; the whole run {seconds:.1f} s",
+          flush=True)
+    gate_c = release_b1_gate(row, rec)
+    del rec
+
+    second = workdir / f"{row}-b.json"
+    rc, text, _, again, seconds2, _ = run_release_tool(
+        base + ["--expected-top1", str(report["nbdt_soft_top1"]), "--tolerance", "0.2",
+                "--reference-transcript", str(first), "--report-out", str(second)])
+    check(rc == 0 and text.rstrip().endswith("PASS") and again["pass"] is True
+          and again["transcript_mismatches"] == [],
+          f"[release] {row} (a) verdict run: exit {rc}, {text[-400:]!r}")
+    lines = [line for line in text.splitlines() if line.startswith(("top-1:", "decision"))]
+    print(f"[release] {row} (a) again with --expected-top1 {report['nbdt_soft_top1']} "
+          f"--tolerance 0.2 --reference-transcript: {' | '.join(lines)} -> PASS "
+          f"({seconds2:.1f} s)", flush=True)
+    return {"arch": arch, "dataset": dataset, "n_val": n_val, "backbone_top1": top1[0],
+            "nbdt_soft_top1": top1[1], "nbdt_hard_top1": top1[2], **perf,
+            "verdict_run_s": seconds2, "b1": gate_c}
+
+
+def release_card_vs_cpu(row: str, arch: str, dataset: str, n_cpu: int, ckpt: Path,
+                        cpu: dict, cpu_report: Path, workdir: Path) -> dict:
+    """(b) of one row: the tool on the card at the CPU run's size, against
+    the CPU run's transcript; its three top-1s equal the CPU's, an image
+    whose prediction differs excused only where ``release_ties`` holds on
+    the CPU's logits (counted)."""
+    out = workdir / f"{row}-card-small.json"
+    rc, text, rec, report, *_ = run_release_tool(
+        ["--checkpoint", str(ckpt), "--arch", arch, "--dataset", dataset, "--val",
+         "synthetic", "--synthetic-size", str(n_cpu), "--batch-size", str(RELEASE_BATCH),
+         "--reference-transcript", str(cpu_report), "--report-out", str(out)])
+    check(rc == 0 and report["transcript_mismatches"] == [],
+          f"[release] {row} (b): the card against the CPU's transcript: exit {rc}, "
+          f"{text[-400:]!r}")
+    check(cpu["rc"] == 0, f"[release] {row} (b): the CPU run exited {cpu['rc']}")
+    want = json.loads(cpu_report.read_text())
+    model = rec["model"]
+    card_logits, cpu_logits = rec["logits"], cpu["logits"].to("cuda")
+    ties = release_ties(cpu_logits, model.rules.jt)
+    differ = {}
+    for key, fn in (("backbone_top1", lambda x: x), ("nbdt_soft_top1", model.rules),
+                    ("nbdt_hard_top1", rec["hard_rules"])):
+        bad = fn(card_logits).argmax(1) != fn(cpu_logits).argmax(1)
+        differ[key] = int(bad.sum())
+        check(bool(ties[bad].all()),
+              f"[release] {row} (b): {key} differs card vs CPU on {differ[key]} images, "
+              f"{int((bad & ~ties).sum())} of them not ties within {TOL}")
+        if not differ[key]:
+            check(report[key] == want[key],
+                  f"[release] {row} (b): {key} card {report[key]}, CPU {want[key]}")
+    print(f"[release] {row} (b) card vs CPU at {n_cpu} images: card "
+          f"{[report[k] for k in differ]}, CPU {[want[k] for k in differ]} (images whose "
+          f"prediction differs: {json.dumps(differ)}, tie images {int(ties.sum())}); the CPU's "
+          f"transcript against the card: "
+          f"{next(x for x in text.splitlines() if x.startswith('decision'))}; CPU eval "
+          f"{cpu['seconds']:.1f} s", flush=True)
+    return {"n": n_cpu, "card": [report[k] for k in differ], "cpu": [want[k] for k in differ],
+            "differ": differ, "tie_images": int(ties.sum()), "cpu_eval_s": cpu["seconds"]}
+
+
+def release_val_real(ckpt: Path, workdir: Path) -> dict:
+    """(d) ``--val real`` on a staged CIFAR10 ``test_batch`` of
+    RELEASE_REAL seeded images in the loader's pickle format: n_val and the
+    published 97.55 in the report, FAIL and exit 1 on random weights; an
+    empty root exits with the "No staged" message."""
+    import pickle
+
+    root = workdir / "data"
+    (root / "cifar-10-batches-py").mkdir(parents=True)
+    rng = np.random.RandomState(96)
+    with open(root / "cifar-10-batches-py" / "test_batch", "wb") as fh:
+        pickle.dump({"data": rng.randint(0, 256, (RELEASE_REAL, 3072)).astype(np.uint8),
+                     "labels": rng.randint(0, 10, RELEASE_REAL).tolist()}, fh)
+    out = workdir / "real.json"
+    base = ["--checkpoint", str(ckpt), "--arch", "wrn28_10_cifar10", "--dataset", "CIFAR10",
+            "--val", "real", "--batch-size", str(RELEASE_BATCH)]
+    rc, text, rec, report, seconds, _ = run_release_tool(
+        base + ["--dataset-root", str(root), "--report-out", str(out)])
+    check(rc == 1 and text.rstrip().endswith("FAIL") and report["pass"] is False
+          and report["n_val"] == RELEASE_REAL and report["expected_top1"] == 97.55,
+          f"[release] (d) --val real: exit {rc}, n_val {report['n_val']}, expected "
+          f"{report['expected_top1']}, {text[-300:]!r}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            vr.main(base + ["--dataset-root", str(workdir / "empty"), "--device", "cuda"])
+        staged = "no SystemExit"
+    except SystemExit as e:
+        staged = str(e)
+    check("No staged CIFAR10" in staged, f"[release] (d) an empty root: {staged!r}")
+    print(f"[release] (d) --val real on a staged test_batch of {RELEASE_REAL} seeded images: "
+          f"{text.strip().splitlines()[0]} -> FAIL, exit 1 ({seconds:.1f} s, "
+          f"{RELEASE_REAL / rec['wall_s']:.1f} images/s in the eval); an empty root: "
+          f"{staged.splitlines()[-1][:60]}...", flush=True)
+    return {"n_val": report["n_val"], "expected_top1": report["expected_top1"],
+            "nbdt_soft_top1": report["nbdt_soft_top1"], "exit": rc, "seconds": seconds}
+
+
+def run_release_path(workdir: Path, r3: Path) -> dict:
+    """The release path (``python -m nbdt_torch.tools.verify_release``, the
+    port of ``tools/verify_release.py``) on the four rows of its published
+    table at their widths (RELEASE_ROWS), through the tool's ``main(argv)``:
+    (a) each row report-only, then against its own soft top-1 and
+    transcript (PASS); (b) the CPU runs at RELEASE_ROWS' smaller sizes, in
+    a worker process while the card runs (a), against the card at those
+    sizes; (c) B1 on each row's val features against the tool's soft
+    argmax; (d) ``--val real`` on a staged CIFAR10 test_batch. The tool
+    launches no kernel, as the JAX tool runs none."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    release_launches.update(dict.fromkeys(release_launches, 0))
+    ckpts = release_checkpoints(workdir, r3)
+    jobs = [{"argv": ["--checkpoint", str(ckpts[row]), "--arch", arch, "--dataset", dataset,
+                      "--val", "synthetic", "--synthetic-size", str(n_cpu), "--batch-size",
+                      str(RELEASE_BATCH), "--report-out", str(workdir / f"{row}-cpu.json")],
+             "out": str(workdir / f"{row}-cpu.pt")}
+            for row, arch, dataset, _, n_cpu in RELEASE_ROWS]
+    (workdir / "jobs.json").write_text(json.dumps(jobs))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH")])),
+        "CUDA_VISIBLE_DEVICES": ""}
+    worker = subprocess.Popen(
+        [sys.executable, "-c", RELEASE_WORKER, str(workdir / "jobs.json"),
+         str(RELEASE_CPU_THREADS)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    rows = {}
+    try:
+        for row, arch, dataset, n_val, _ in RELEASE_ROWS:
+            rows[row] = release_row(row, arch, dataset, n_val, ckpts[row], workdir)
+        log, _ = worker.communicate(timeout=RELEASE_DEADLINE)
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.communicate()
+    check(worker.returncode == 0, f"[release] the CPU worker exited {worker.returncode}: "
+                                  f"{log[-3000:]}")
+    for (row, arch, dataset, _, n_cpu), job in zip(RELEASE_ROWS, jobs):
+        cpu = torch.load(job["out"], weights_only=True)
+        rows[row]["card_vs_cpu"] = release_card_vs_cpu(
+            row, arch, dataset, n_cpu, ckpts[row], cpu,
+            workdir / f"{row}-cpu.json", workdir)
+    real = release_val_real(ckpts["R1"], workdir)
+    launches = dict(release_launches)
+    print(f"[release] kernel launches over the tool's runs: {json.dumps(launches)}; B1's "
+          f"gate (c) launched {sum(r['b1']['gate_launches'] for r in rows.values())} outside "
+          f"them", flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+    r3.unlink(missing_ok=True)
+    return {"rows": rows, "val_real": real, "launches": launches,
+            "b1_gate_launches": sum(r["b1"]["gate_launches"] for r in rows.values())}
+
+
 def time_path_head(feats: torch.Tensor, hc: st.HeadConstants, label: str) -> dict:
     """B1 on a path's own features and classifier (f32 W): the kernel, its
     plain version and, as a yardstick for the classifier alone,
@@ -3551,6 +3966,11 @@ def main() -> int:
     examples["seconds"] = time.perf_counter() - t0
     print(f"[examples] the convert and examples path took {examples['seconds']:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    release = run_release_path(Path(__file__).resolve().parent / "build" / "chip_smoke_release",
+                               WRN_CLI_PTH)
+    release["seconds"] = time.perf_counter() - t0
+    print(f"[release] the release path took {release['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -3601,6 +4021,7 @@ def main() -> int:
         "segmentation": seg,
         "imagenet_train": imagenet_train,
         "convert_examples": examples,
+        "release": release,
         "native": native_rec,
         "card": smi}}), flush=True)
 
@@ -3690,6 +4111,12 @@ def main() -> int:
         "launches_on_segmentation_path": seg["launches"]["soft_head"],
         "launches_on_imagenet_train_path": imagenet_train["launches"]["soft_head"],
         "launches_on_examples_path": examples["launches"]["soft_head"],
+        "launches_on_release_path": release["launches"]["soft_head"],
+        # B1 held to the release tool's soft argmax on each row's features
+        "release_gate_launches": release["b1_gate_launches"],
+        "release_gate_heads": {row: {k: rec["b1"][k] for k in ("D", "C", "instance",
+                                                                "argmax_agreement", "tie_rows")}
+                               for row, rec in release["rows"].items()},
         "instance_by_shape": {"resnet18": head_resnet[f32]["instance"],
                               "vit_b16": head_vit[f32]["instance"],
                               "cifar100_d2048": head_wide[f32]["instance"],
@@ -3721,6 +4148,7 @@ def main() -> int:
         "launches_on_segmentation_path": seg["launches"]["layernorm"],
         "launches_on_imagenet_train_path": imagenet_train["launches"]["layernorm"],
         "launches_on_examples_path": examples["launches"]["layernorm"],
+        "launches_on_release_path": release["launches"]["layernorm"],
         "max_abs_err": ln_err[f32],
         "ms": ln_t[f32]["ms"],
         "plain_ms": ln_t[f32]["plain_ms"],
@@ -3746,6 +4174,7 @@ def main() -> int:
         "launches_on_segmentation_path": seg["launches"]["conv3x3"],
         "launches_on_imagenet_train_path": imagenet_train["launches"]["conv3x3"],
         "launches_on_examples_path": examples["launches"]["conv3x3"],
+        "launches_on_release_path": release["launches"]["conv3x3"],
         "max_abs_err": conv_err,
         "ms": conv_t["kernel"]["ms"],
         "plain_ms": conv_t["plain"]["ms"],

@@ -138,14 +138,18 @@ def class_to_wnid(name: str, offset_fallback: int) -> str:
         return FakeSynset.create_from_offset(offset_fallback).wnid
 
 
-def main(argv=None):
+def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--dataset", default="CIFAR10")
     parser.add_argument("--classes", nargs="*", default=None,
                         help="explicit class names (else the dataset's)")
     parser.add_argument("--root", default="./out/wnids",
                         help="output directory of <dataset>.txt (never the vendored lists')")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
 
     from ..assets import get_dataset_wnids
     from ..hierarchy.wnid import maybe_install_wordnet, write_wnids

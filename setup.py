@@ -10,7 +10,7 @@ setup(
     package_data={
         "nbdt_tpu.native": ["*.cpp"],
         "nbdt_tpu": ["hierarchies/*/*.json", "wnids/*.txt"],
-        "nbdt_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "nbdt_torch": ["csrc/*.cu", "csrc/*.cuh", "scripts/*.sh", "scripts/*.ps1"],
         "nbdt_torch.native": ["*.cpp"],
     },
     include_package_data=True,
