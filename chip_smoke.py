@@ -55,7 +55,13 @@ of its published table: WRN-28-10 on CIFAR10, CIFAR100 and
 TinyImagenet200 at 10,000 synthetic images each and EfficientNet-B7b on
 Imagenet1000 at 224px on 1,024, from seeded checkpoints; its verdict
 against its own numbers, the card against the CPU, the fused head held to
-its soft argmax, ``--val real`` on a staged CIFAR10 test batch), beside a
+its soft argmax, ``--val real`` on a staged CIFAR10 test batch), and the
+surface phase (the JAX package's last public names on the port, in a worker
+with jax, flax, optax and nbdt_tpu blocked: the re-exported loss and
+hierarchy names, ``Tree.create_from_args``, the Node helpers,
+``Digraph.remove_node``, the embedded wnid tables; the notebook walkthrough
+``nbdt_torch/examples/load_pretrained_nbdts.ipynb`` on the card against the
+CPU; ``apply_augment_numpy`` against the native augment), beside a
 native phase that holds the
 host input pipeline's C++ kernels (``nbdt_torch.native``) against numpy and
 checks that the host-fed training run went through them. Builds every
@@ -73,7 +79,8 @@ probe's parity and timing phases), the training path, the WRN-28-10 serving
 and training path, the zero-shot path, the ImageNet path, the zoo path, the
 export path, the parallel path, the segmentation path, the ImageNet
 training path with its tp pair, the converter and examples, the release
-path, times; the native phase runs after the training path.
+path, the surface phase, times; the native phase runs after the training
+path.
 """
 
 from __future__ import annotations
@@ -351,6 +358,154 @@ RELEASE_CPU_THREADS = 6  # of the machine's 8 cores; the card's runs keep the re
 RELEASE_DEADLINE = 600  # seconds the CPU worker may take past the card's runs
 # R3's checkpoint: the .pth that the WRN path's CLI trains on TinyImagenet200
 WRN_CLI_PTH = Path(__file__).resolve().parent / "build" / "chip_smoke_wrn_cli.pth"
+# Surface phase: the last public names of the JAX package on the port, in a
+# worker with jax, jaxlib, flax, optax and nbdt_tpu blocked. The notebook
+# walkthrough runs on the card (TF32 off) and on the CPU from one seeded
+# ResNet18 .pth and PNG; each decision's prob within SURFACE_PROB_TOL (the
+# test's, tests/test_torch_notebook.py). The numpy augment twin against the
+# native kernel on a SURFACE_AUGMENT batch: the pixels it picks bit for bit,
+# the floats within NATIVE_TOL.
+SURFACE_NAMES = {
+    "nbdt_torch": ["CrossEntropyLoss", "HardTreeSupLoss", "SoftSegTreeSupLoss", "SoftTreeLoss",
+                   "SoftTreeSupLoss", "TreeSupLoss", "cross_entropy", "hard_tree_sup_loss",
+                   "soft_tree_sup_loss"],
+    "nbdt_torch.hierarchy": [
+        "Digraph", "get_depth", "get_leaf_to_path", "get_leaves", "get_root", "get_roots",
+        "node_link_data", "node_link_graph", "read_graph", "write_graph", "FakeSynset",
+        "get_wnids", "get_wnids_from_dataset", "maybe_install_wordnet", "synset_to_name",
+        "synset_to_wnid", "wnid_to_name", "wnid_to_synset", "wordnet_available", "write_wnids",
+        "ward_children", "augment_graph", "build_induced_graph", "build_minimal_wordnet_graph",
+        "build_random_graph", "prune_single_successor_nodes", "MODEL_FC_KEYS", "check_hierarchy",
+        "generate_graph_fname", "generate_hierarchy", "get_centers_from_checkpoint",
+        "get_centers_from_state_dict", "get_graph_path_from_args", "resolve_centers",
+        "test_hierarchy"]}
+SURFACE_PROB_TOL = 1e-4
+SURFACE_AUGMENT = (256, 32, 32, 3)
+SURFACE_TIMED = 20
+SURFACE_DEADLINE = 300  # seconds for the worker
+SURFACE_WORKER = r'''
+import contextlib, io, json, os, sys, time
+repo, pth, png, augment, timed = sys.argv[1:5] + [int(sys.argv[5])]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "nbdt_tpu")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, repo)
+import argparse
+
+import numpy as np
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+rec = {}
+
+# (a) every name of the slice, from the path a user writes
+names = json.loads(sys.argv[6])
+for module, listed in names.items():
+    exec(f"from {module} import {', '.join(listed)}")
+from nbdt_torch import assets
+from nbdt_torch.assets import DATASET_TO_WNIDS, get_dataset_wnids
+from nbdt_torch.bin.nbdt_hierarchy import main as hierarchy_main
+from nbdt_torch.bin.nbdt_wnids import main as wnids_main
+from nbdt_torch.data.transforms import CIFAR_MEAN, CIFAR_STD, apply_augment_numpy
+from nbdt_torch.hierarchy import read_graph
+from nbdt_torch.tree import Node, Tree
+
+tree = Tree.create_from_args(argparse.Namespace(dataset="CIFAR100", path_graph=None,
+                                                path_wnids=None, hierarchy="induced"))
+root = tree.root
+graph = read_graph(tree.path_graph)
+inner = next(n for n in graph.nodes if graph.succ(n) and graph.pred(n))
+parents, children = graph.pred(inner), graph.succ(inner)
+graph.remove_node(inner)
+vendored = {d: get_dataset_wnids(d) for d in DATASET_TO_WNIDS}
+assets.dataset_to_default_path_wnids = lambda d: os.path.join(repo, "absent.txt")
+rec["a"] = {
+    "names": {module: len(listed) for module, listed in names.items()},
+    "tables": {d: len(t) for d, t in DATASET_TO_WNIDS.items()},
+    "tables_back_get_dataset_wnids": all(get_dataset_wnids(d) == t == vendored[d]
+                                         for d, t in DATASET_TO_WNIDS.items()),
+    "class_counts_root": root.class_counts, "dim_inodes": Node.dim(tree.inodes),
+    "wnid_to_class_index": [root.wnid_to_class_index(w) for w in tree.wnids_leaves[:3]],
+    "remove_node": inner not in graph and all(inner not in graph.succ(p) for p in parents)
+    and all(inner not in graph.pred(c) for c in children),
+    "console_mains": callable(hierarchy_main) and callable(wnids_main)}
+
+# (b) the notebook walkthrough on the card, then on the CPU
+nb = os.path.join(repo, "nbdt_torch", "examples", "load_pretrained_nbdts.ipynb")
+with open(nb) as f:
+    cells = ["".join(c["source"]) for c in json.load(f)["cells"] if c["cell_type"] == "code"]
+code = compile("\n\n".join(cells), nb, "exec")
+runs = {}
+for device in ("cuda", "cpu"):
+    os.environ.update(NBDT_DEVICE=device, NBDT_CHECKPOINT=pth, NBDT_IMAGE=png)
+    ns, buf = {}, io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        exec(code, ns)
+    runs[device] = {"ns": ns, "lines": buf.getvalue().splitlines(),
+                    "seconds": time.perf_counter() - t0}
+card, cpu = runs["cuda"]["ns"], runs["cpu"]["ns"]
+model, x = card["model"], card["x"]
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+wall, event = [], []
+for i in range(3 + timed):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    model.forward_with_decisions(x)
+    end.record()
+    torch.cuda.synchronize()
+    if i >= 3:
+        wall.append((time.perf_counter() - t0) * 1e3)
+        event.append(start.elapsed_time(end))
+rec["b"] = {
+    "device": str(card["outputs"].device), "cpu_device": str(cpu["outputs"].device),
+    "soft": [card["model"].tree.classes[int(ns["outputs"].argmax(-1)[0])] for ns in (card, cpu)],
+    "hard": [card["model"].tree.classes[int(ns["h_out"].argmax(-1)[0])] for ns in (card, cpu)],
+    "soft_nodes": [[s["name"] for s in ns["decisions"][0]] for ns in (card, cpu)],
+    "hard_nodes": [[s["name"] for s in ns["h_dec"][0]] for ns in (card, cpu)],
+    "prob_max_diff": max(abs(float(a["prob"]) - float(b["prob"])) for key in ("decisions", "h_dec")
+                         for a, b in zip(card[key][0], cpu[key][0])),
+    "lines": runs["cuda"]["lines"], "cpu_lines": runs["cpu"]["lines"],
+    "seconds": runs["cuda"]["seconds"], "cpu_seconds": runs["cpu"]["seconds"],
+    "ms": sorted(event)[timed // 2], "wall_ms": sorted(wall)[timed // 2], "timed": timed}
+
+# (c) the numpy augment twin against the native kernel
+from nbdt_torch import native
+
+shape = tuple(int(v) for v in augment.split("x"))
+batch = np.random.RandomState(91).randint(0, 256, shape).astype(np.uint8)
+draws = np.random.RandomState(92)
+ys = draws.randint(0, 9, size=shape[0])
+xs = draws.randint(0, 9, size=shape[0])
+flips = draws.rand(shape[0]) < 0.5
+t0 = time.perf_counter()
+twin = apply_augment_numpy(batch, 4, ys, xs, flips, CIFAR_MEAN, CIFAR_STD)
+twin_ms = (time.perf_counter() - t0) * 1e3
+t0 = time.perf_counter()
+kernel = native.augment_batch(batch, 4, CIFAR_MEAN, CIFAR_STD, np.random.RandomState(92))
+kernel_ms = (time.perf_counter() - t0) * 1e3
+pixels = lambda v: np.rint((v * CIFAR_STD + CIFAR_MEAN) * 255).astype(np.uint8)
+rec["c"] = {"shape": list(shape), "native": kernel is not None,
+            "pixels_equal": kernel is not None and bool(np.array_equal(pixels(kernel), pixels(twin))),
+            "max_abs_diff": None if kernel is None else float(np.abs(kernel - twin).max()),
+            "twin_ms": twin_ms, "native_ms": kernel_ms, "native_calls": dict(native.calls)}
+
+from nbdt_torch.ops import conv3x3, layernorm, soft_traversal
+
+rec["launches"] = {"soft_head": soft_traversal.launches, "layernorm": layernorm.launches,
+                   "conv3x3": conv3x3.launches}
+rec["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(json.dumps(rec))
+'''
 
 
 def check(ok: bool, msg: str) -> None:
@@ -3359,6 +3514,99 @@ def run_convert_and_examples(workdir: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The surface phase: the JAX package's last public names on the port
+# ---------------------------------------------------------------------------
+
+
+def run_surface_path(workdir: Path, smi: str) -> dict:
+    """The last public surface of the JAX package on the port, in a worker
+    process with jax, jaxlib, flax, optax and nbdt_tpu blocked: (a) every
+    name of the slice imports from the path a user writes and answers on
+    CIFAR100's tree; (b) the notebook walkthrough
+    (``nbdt_torch/examples/load_pretrained_nbdts.ipynb``) on the card, TF32
+    off, and on the CPU from one seeded ResNet18 ``.pth`` and PNG: the same
+    soft and hard predictions through the same nodes, each prob within
+    SURFACE_PROB_TOL, and the card's ms for one ``forward_with_decisions``;
+    (c) ``apply_augment_numpy`` against the native ``augment_batch``. No
+    kernel launches, in this process or the worker."""
+    from PIL import Image
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    torch.manual_seed(95)
+    cifar = ResNet18(10)
+    randomize_batchnorm(cifar, torch.Generator().manual_seed(96))
+    pth, png = workdir / "resnet18.pth", workdir / "image.png"
+    torch.save({"net": cifar.state_dict()}, pth)
+    Image.fromarray(np.random.RandomState(97).randint(0, 256, (32, 32, 3), dtype=np.uint8)).save(
+        png)
+    repo = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [repo, os.environ.get(
+        "PYTHONPATH")]))}
+    proc = subprocess.run([sys.executable, "-c", SURFACE_WORKER, repo, str(pth), str(png),
+                           "x".join(map(str, SURFACE_AUGMENT)), str(SURFACE_TIMED),
+                           json.dumps(SURFACE_NAMES)],
+                          env=env, cwd=workdir, capture_output=True, text=True,
+                          timeout=SURFACE_DEADLINE)
+    check(proc.returncode == 0, f"[surface] the worker failed: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    a, b, c = rec["a"], rec["b"], rec["c"]
+
+    check(rec["loaded"] == [], f"[surface] the worker loaded {rec['loaded']}")
+    check(a["names"] == {"nbdt_torch": 9, "nbdt_torch.hierarchy": 35} and a["console_mains"],
+          f"[surface] (a) names {a}")
+    check(a["tables"] == {"CIFAR10": 10, "CIFAR100": 100, "TinyImagenet200": 200,
+                          "Imagenet1000": 1000} and a["tables_back_get_dataset_wnids"],
+          f"[surface] (a) the wnid tables {a['tables']}")
+    check(sum(a["class_counts_root"]) == 100 and a["remove_node"]
+          and a["wnid_to_class_index"] == [0, 1, 2], f"[surface] (a) {a}")
+    print(f"[surface] (a) {a['names']['nbdt_torch']} loss names from nbdt_torch, "
+          f"{a['names']['nbdt_torch.hierarchy']} names from nbdt_torch.hierarchy, the four wnid tables {a['tables']} behind get_dataset_wnids "
+          f"with the vendored files hidden, Tree.create_from_args on CIFAR100 (root class "
+          f"counts {a['class_counts_root']}, Node.dim of the inodes {a['dim_inodes']}), "
+          f"Digraph.remove_node, the nbdt-torch-hierarchy and nbdt-torch-wnids mains; "
+          f"jax, jaxlib, flax, optax and nbdt_tpu blocked", flush=True)
+
+    check(b["device"].startswith("cuda") and b["cpu_device"] == "cpu",
+          f"[surface] (b) ran on {b['device']} and {b['cpu_device']}")
+    check(b["soft"][0] == b["soft"][1] and b["hard"][0] == b["hard"][1],
+          f"[surface] (b) card vs CPU predictions soft {b['soft']}, hard {b['hard']}")
+    check(b["soft_nodes"][0] == b["soft_nodes"][1] and b["hard_nodes"][0] == b["hard_nodes"][1]
+          and len(b["soft_nodes"][0]) >= 2, f"[surface] (b) decision nodes {b}")
+    check(b["prob_max_diff"] <= SURFACE_PROB_TOL,
+          f"[surface] (b) max |prob card - CPU| {b['prob_max_diff']} > {SURFACE_PROB_TOL}")
+    print(f"[surface] (b) the notebook on the card ({b['seconds']:.1f} s, the CPU "
+          f"{b['cpu_seconds']:.1f} s): {' // '.join(b['lines'][1:])}", flush=True)
+    print(f"[surface] (b) card = CPU: soft {b['soft'][0]}, hard {b['hard'][0]} through "
+          f"{' -> '.join(b['hard_nodes'][0])}, max |prob card - CPU| {b['prob_max_diff']:.3g} "
+          f"(<= {SURFACE_PROB_TOL})", flush=True)
+    print(f"[surface] (b) one forward_with_decisions on the card, 1 image, ResNet18 f32: "
+          f"{b['ms']:.4f} ms (events), {b['wall_ms']:.4f} ms wall, median of {b['timed']}; "
+          f"{smi}", flush=True)
+
+    check(c["native"] and c["pixels_equal"] and c["max_abs_diff"] <= NATIVE_TOL,
+          f"[surface] (c) apply_augment_numpy vs augment_batch {c}")
+    print(f"[surface] (c) apply_augment_numpy = native augment_batch at "
+          f"{'x'.join(map(str, c['shape']))}: the pixels bit for bit, floats within "
+          f"{c['max_abs_diff']:.3g} (<= {NATIVE_TOL}); numpy {c['twin_ms']:.2f} ms, native "
+          f"{c['native_ms']:.2f} ms on the host", flush=True)
+
+    torch.cuda.synchronize()
+    out = {"imports": a, "notebook": b, "augment": c, "worker_launches": rec["launches"],
+           "launches": read_launches(), "seconds": time.perf_counter() - t0}
+    zero = {"soft_head": 0, "layernorm": 0, "conv3x3": 0}
+    check(out["launches"] == zero and out["worker_launches"] == zero,
+          f"[surface] launches {out['launches']}, the worker's {out['worker_launches']}")
+    print(f"[surface] kernel launches: {out['launches']} here, {out['worker_launches']} in the "
+          f"worker", flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The release path: the port's released-checkpoint parity harness
 # ---------------------------------------------------------------------------
 
@@ -3971,6 +4219,9 @@ def main() -> int:
                                WRN_CLI_PTH)
     release["seconds"] = time.perf_counter() - t0
     print(f"[release] the release path took {release['seconds']:.1f} s", flush=True)
+    surface = run_surface_path(Path(__file__).resolve().parent / "build" / "chip_smoke_surface",
+                               smi)
+    print(f"[surface] the surface phase took {surface['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -4022,6 +4273,7 @@ def main() -> int:
         "imagenet_train": imagenet_train,
         "convert_examples": examples,
         "release": release,
+        "surface": surface,
         "native": native_rec,
         "card": smi}}), flush=True)
 
@@ -4112,6 +4364,7 @@ def main() -> int:
         "launches_on_imagenet_train_path": imagenet_train["launches"]["soft_head"],
         "launches_on_examples_path": examples["launches"]["soft_head"],
         "launches_on_release_path": release["launches"]["soft_head"],
+        "launches_on_surface_path": surface["launches"]["soft_head"],
         # B1 held to the release tool's soft argmax on each row's features
         "release_gate_launches": release["b1_gate_launches"],
         "release_gate_heads": {row: {k: rec["b1"][k] for k in ("D", "C", "instance",
@@ -4149,6 +4402,7 @@ def main() -> int:
         "launches_on_imagenet_train_path": imagenet_train["launches"]["layernorm"],
         "launches_on_examples_path": examples["launches"]["layernorm"],
         "launches_on_release_path": release["launches"]["layernorm"],
+        "launches_on_surface_path": surface["launches"]["layernorm"],
         "max_abs_err": ln_err[f32],
         "ms": ln_t[f32]["ms"],
         "plain_ms": ln_t[f32]["plain_ms"],
@@ -4175,6 +4429,7 @@ def main() -> int:
         "launches_on_imagenet_train_path": imagenet_train["launches"]["conv3x3"],
         "launches_on_examples_path": examples["launches"]["conv3x3"],
         "launches_on_release_path": release["launches"]["conv3x3"],
+        "launches_on_surface_path": surface["launches"]["conv3x3"],
         "max_abs_err": conv_err,
         "ms": conv_t["kernel"]["ms"],
         "plain_ms": conv_t["plain"]["ms"],

@@ -24,8 +24,8 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
               checkpoints through a local cache
   serialization  a pure-Python reader of the JAX package's .msgpack
               checkpoints
-  ops         hand-written CUDA kernels (csrc/: soft head, LayerNorm) beside
-              their plain versions
+  ops         hand-written CUDA kernels (csrc/: soft head, LayerNorm, 3x3
+              conv) beside their plain versions
   model       NBDT / SoftNBDT / HardNBDT wrappers (NHWC input), model_urls,
               and the per-pixel SegNBDT / SoftSegNBDT / HardSegNBDT
   serving     make_serving_fn; export_serving / load_serving (torch.export
@@ -34,8 +34,16 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
               BatchNorm, ZeRO-1 (DDP training over one process per card)
   profiling   torch.profiler traces, step annotations, StepTimer
   bin/        the CLIs: nbdt, original, nbdt_export, nbdt_hierarchy,
-              nbdt_wnids
-  examples/   train_seg, the segmentation trainer
+              nbdt_wnids (installed as nbdt-torch, nbdt-torch-original,
+              nbdt-torch-export, nbdt-torch-hierarchy, nbdt-torch-wnids)
+  examples/   train_seg (the segmentation trainer), train_imagenet (the
+              config-driven ImageNet trainer), load_pretrained and the
+              load_pretrained_nbdts.ipynb walkthrough, vis_demo, app (an
+              HTTP classifier)
+  tools/      verify_release (released-checkpoint parity), count_work,
+              the conv probe, the fused head's phase profiler, the conv
+              ablation
+  scripts/    the reproduction pipelines (bash and PowerShell)
 """
 
 __version__ = "0.1.0"
@@ -50,5 +58,16 @@ from .rules import (
 )
 from .model import (NBDT, HardNBDT, HardSegNBDT, SegNBDT, SoftNBDT, SoftSegNBDT, TaggedOutput,
                     model_urls)
+from .losses import (
+    CrossEntropyLoss,
+    HardTreeSupLoss,
+    SoftSegTreeSupLoss,
+    SoftTreeLoss,
+    SoftTreeSupLoss,
+    TreeSupLoss,
+    cross_entropy,
+    hard_tree_sup_loss,
+    soft_tree_sup_loss,
+)
 from .serving import (aot_compile, export_serving, load_serving, make_serving_fn,
                       shard_serving)

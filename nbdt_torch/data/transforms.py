@@ -78,6 +78,14 @@ def augment_uint8(batch_u8, pad, ys, xs, flips) -> np.ndarray:
     return out
 
 
+def apply_augment_numpy(batch_u8: np.ndarray, pad: int, ys: np.ndarray, xs: np.ndarray,
+                        flips: np.ndarray, mean: np.ndarray, std: np.ndarray) -> np.ndarray:
+    """Pad + crop + flip + normalize with explicit offsets: the numpy twin of
+    the native ``augment_batch`` (``native/augment.cpp``), bit for bit. The
+    loaders never fall back on it; it is the kernel's oracle."""
+    return normalize(augment_uint8(batch_u8, pad, ys, xs, flips), mean, std)
+
+
 def make_train_transform(mean, std, crop_pad: int = 4, hflip: bool = True,
                          seed: int = 0, device_normalize: bool = False):
     """Train-time augmentation of uint8 batches: per batch, draws the crop

@@ -36,6 +36,16 @@ class Digraph:
         self._succ[parent][child] = None
         self._pred[child][parent] = None
 
+    def remove_node(self, node: str) -> None:
+        """Unlink every edge into and out of ``node``, then drop it."""
+        for child in list(self._succ[node]):
+            del self._pred[child][node]
+        for parent in list(self._pred[node]):
+            del self._succ[parent][node]
+        del self._nodes[node]
+        del self._succ[node]
+        del self._pred[node]
+
     def set_label(self, node: str, label: str) -> None:
         self.add_node(node, label=label)
 

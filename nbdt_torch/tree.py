@@ -96,6 +96,9 @@ class Node:
     def is_root(self) -> bool:
         return len(self.pred) == 0
 
+    def wnid_to_class_index(self, wnid: str) -> int:
+        return self.tree.wnids_leaves.index(wnid)
+
     def wnid_to_child_index(self, wnid: str) -> int:
         return [child.wnid for child in self.children].index(wnid)
 
@@ -133,6 +136,17 @@ class Node:
                 self.child_index_to_class_index.items(), key=lambda t: t[0]
             )
         ]
+
+    @property
+    def class_counts(self) -> List[int]:
+        """Descendant classes under each child slot, in slot order."""
+        return [len(v) for _, v in sorted(self.child_index_to_class_index.items(),
+                                          key=lambda t: t[0])]
+
+    @staticmethod
+    def dim(nodes: Sequence["Node"]) -> int:
+        """Total child slots (the ``other`` slot included) of ``nodes``."""
+        return sum(node.num_classes for node in nodes)
 
     def __repr__(self):
         return f"Node({self.wnid}, name={self.name!r}, children={self.num_children})"
@@ -202,6 +216,13 @@ class Tree:
         self.inodes = [n for n in self.nodes if not n.is_leaf()]
         self.leaves = [self.wnid_to_node[w] for w in self.wnids_leaves]
         self._arrays = None
+
+    @classmethod
+    def create_from_args(cls, args, classes=None) -> "Tree":
+        """A tree from a parsed namespace's ``dataset``, ``path_graph``,
+        ``path_wnids`` and ``hierarchy``."""
+        return cls(args.dataset, args.path_graph, args.path_wnids, classes=classes,
+                   hierarchy=args.hierarchy)
 
     @property
     def root(self) -> Node:

@@ -10,7 +10,8 @@ setup(
     package_data={
         "nbdt_tpu.native": ["*.cpp"],
         "nbdt_tpu": ["hierarchies/*/*.json", "wnids/*.txt"],
-        "nbdt_torch": ["csrc/*.cu", "csrc/*.cuh", "scripts/*.sh", "scripts/*.ps1"],
+        "nbdt_torch": ["csrc/*.cu", "csrc/*.cuh", "scripts/*.sh", "scripts/*.ps1",
+                       "examples/*.ipynb"],
         "nbdt_torch.native": ["*.cpp"],
     },
     include_package_data=True,
@@ -36,6 +37,8 @@ setup(
             "nbdt-torch=nbdt_torch.bin.nbdt:main",
             "nbdt-torch-original=nbdt_torch.bin.original:main",
             "nbdt-torch-export=nbdt_torch.bin.nbdt_export:main",
+            "nbdt-torch-hierarchy=nbdt_torch.bin.nbdt_hierarchy:main",
+            "nbdt-torch-wnids=nbdt_torch.bin.nbdt_wnids:main",
         ]
     },
 )

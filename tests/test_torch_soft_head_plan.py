@@ -173,6 +173,23 @@ def test_plan_sizes_tiles_to_one_wave_of_clusters():
     assert head_plan(hc, 256, block_b=8, clusters=15).rows == 8
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread and full-f32 matmuls for the walk tests, and the
+    worker's own settings back afterwards. On one thread the walk and the
+    plain version do the same float operations in the same order on every
+    row, so what they compare is the plan's partition, not how the CPU's
+    thread pool happened to split a sum."""
+    threads, precision = torch.get_num_threads(), torch.get_float32_matmul_precision()
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        torch.set_float32_matmul_precision(precision)
+
+
 def _walk(feats, hc, plan):
     """The plan's work in plain PyTorch, rank by rank: each rank's
     classifier computes only its class slice; then, tile by tile, each rank
@@ -212,7 +229,7 @@ def _walk(feats, hc, plan):
 
 
 @pytest.mark.parametrize("name", TREES)
-def test_plan_walk_reproduces_the_plain_version(name):
+def test_plan_walk_reproduces_the_plain_version(name, one_thread):
     from nbdt_torch.ops.soft_traversal import head_plan, soft_head_reference
 
     tree = _tree(name)
@@ -221,8 +238,12 @@ def test_plan_walk_reproduces_the_plain_version(name):
     plan = head_plan(hc, feats.shape[0], clusters=3)
     got = _walk(feats, hc, plan)
     want = soft_head_reference(feats, hc)
-    # The same operations on fewer rows: equal but for the order in which the
-    # CPU's threaded matmul and index_add_ split their sums (an ulp or two).
+    # The same operations on fewer rows. A leaf is a sum of at most depth
+    # log-probs, each within an ulp or so, so a mere reordering of the sums
+    # would move it by about depth * ulp(max |leaf|): on CIFAR100 11 *
+    # ulp(10.83) = 11 * 9.5e-7 = 1.05e-5, inside the 1e-6 + 1e-6 * 10.83 =
+    # 1.18e-5 allowed there (Imagenet1000's 18 * ulp(16.02) = 3.4e-5 is
+    # not). On one thread nothing is reordered: the two agree to the bit.
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
@@ -302,7 +323,7 @@ def test_cluster_shared_memory_does_not_grow_with_d(name):
 
 @pytest.mark.parametrize("name,D", [("CIFAR100", 2048), ("Imagenet1000", 2048),
                                     ("TinyImagenet200", 2560)])
-def test_plan_walk_at_wide_heads(name, D):
+def test_plan_walk_at_wide_heads(name, D, one_thread):
     """The plan at the heads C1 used to refuse (ResNet50's D=2048,
     EfficientNet-B7's 2560), walked rank by rank, gives the plain version."""
     from nbdt_torch.ops.soft_traversal import head_plan, soft_head_reference
