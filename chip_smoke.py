@@ -61,8 +61,11 @@ with jax, flax, optax and nbdt_tpu blocked: the re-exported loss and
 hierarchy names, ``Tree.create_from_args``, the Node helpers,
 ``Digraph.remove_node``, the embedded wnid tables; the notebook walkthrough
 ``nbdt_torch/examples/load_pretrained_nbdts.ipynb`` on the card against the
-CPU; ``apply_augment_numpy`` against the native augment), beside a
-native phase that holds the
+CPU; ``apply_augment_numpy`` against the native augment), and the docs
+phase (every runnable snippet of the port's migration guide,
+``docs/torch/MIGRATION.md``, on the card in a worker with the same imports
+blocked: each snippet's wall time and decision path, and no kernel launch
+unless a snippet asks for ``fused=True``), beside a native phase that holds the
 host input pipeline's C++ kernels (``nbdt_torch.native``) against numpy and
 checks that the host-fed training run went through them. Builds every
 hand-written kernel from ``nbdt_torch/csrc/``, holds each against its plain
@@ -79,8 +82,8 @@ probe's parity and timing phases), the training path, the WRN-28-10 serving
 and training path, the zero-shot path, the ImageNet path, the zoo path, the
 export path, the parallel path, the segmentation path, the ImageNet
 training path with its tp pair, the converter and examples, the release
-path, the surface phase, times; the native phase runs after the training
-path.
+path, the surface phase, the docs phase, times; the native phase runs after
+the training path.
 """
 
 from __future__ import annotations
@@ -383,9 +386,10 @@ SURFACE_PROB_TOL = 1e-4
 SURFACE_AUGMENT = (256, 32, 32, 3)
 SURFACE_TIMED = 20
 SURFACE_DEADLINE = 300  # seconds for the worker
-SURFACE_WORKER = r'''
+# The start of each worker's source: any import of jax, jaxlib, flax, optax
+# or nbdt_tpu raises, so the worker shows the port runs without them.
+BLOCKER_PRELUDE = r'''
 import contextlib, io, json, os, sys, time
-repo, pth, png, augment, timed = sys.argv[1:5] + [int(sys.argv[5])]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "nbdt_tpu")
 
 
@@ -397,6 +401,9 @@ class Block:
 
 
 sys.meta_path.insert(0, Block())
+'''
+SURFACE_WORKER = BLOCKER_PRELUDE + r'''
+repo, pth, png, augment, timed = sys.argv[1:5] + [int(sys.argv[5])]
 sys.path.insert(0, repo)
 import argparse
 
@@ -503,6 +510,47 @@ from nbdt_torch.ops import conv3x3, layernorm, soft_traversal
 
 rec["launches"] = {"soft_head": soft_traversal.launches, "layernorm": layernorm.launches,
                    "conv3x3": conv3x3.launches}
+rec["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(json.dumps(rec))
+'''
+# Docs phase: every runnable snippet of the port's migration guide, on the
+# default device, in a worker with the same imports blocked. The guide's
+# scratch directory DOCS_SCRATCH moves under the phase's own.
+DOCS_GUIDE = Path(__file__).resolve().parent / "docs" / "torch" / "MIGRATION.md"
+DOCS_SCRATCH = "/tmp/nbdt_torch_mig"
+DOCS_DEADLINE = 600  # seconds for the worker
+DOCS_WORKER = BLOCKER_PRELUDE + r'''
+repo, guide, marker, scratch, listing = sys.argv[1:6]
+sys.path.insert(0, repo)
+import torch
+
+from nbdt_torch.ops import conv3x3, layernorm, soft_traversal
+
+with open(listing) as f:
+    runnable = json.load(f)
+rec = {"snippets": []}
+for i, block in runnable:
+    code = compile(block.replace(marker, scratch), guide, "exec")
+    soft_traversal.launches = layernorm.launches = conv3x3.launches = 0
+    ns, buf = {"__name__": "__main__"}, io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        exec(code, ns)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"soft_head": soft_traversal.launches, "layernorm": layernorm.launches,
+                "conv3x3": conv3x3.launches}
+    decisions, outputs = ns.get("decisions"), ns.get("outputs")
+    snippet = {"snippet": i, "seconds": seconds, "fused": "fused=True" in block,
+               "device": ns.get("DEVICE"), "launches": launches,
+               "outputs_device": None if outputs is None else str(outputs.device),
+               "path": None if decisions is None else [d["name"] for d in decisions[0]],
+               "lines": buf.getvalue().splitlines()}
+    if snippet["fused"]:  # the B1 kernel against the plain rules on the snippet's images
+        snippet["fused_max_abs_diff"] = float((ns["fused"](ns["x"]) - ns["plain"](ns["x"]))
+                                              .abs().max())
+    rec["snippets"].append(snippet)
 rec["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps(rec))
 '''
@@ -3607,6 +3655,75 @@ def run_surface_path(workdir: Path, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The docs phase: the port's migration guide, snippet by snippet
+# ---------------------------------------------------------------------------
+
+
+def run_docs_path(workdir: Path, smi: str) -> dict:
+    """Every runnable snippet of ``docs/torch/MIGRATION.md`` (the blocks
+    that do not start with ``# torch``), in guide order, in a worker
+    process with jax, jaxlib, flax, optax and nbdt_tpu blocked and no
+    ``NBDT_DEVICE``, so each runs on its default device, the card. Each
+    snippet's wall time, its decision path (``decisions[0]`` where it makes
+    one) and its kernel launches: none of B1-B3 unless the snippet asks for
+    ``fused=True``, and then B1 within TOL of the plain rules."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    blocks = re.findall(r"```python\n(.*?)```", DOCS_GUIDE.read_text(), flags=re.S)
+    listing = [(i, b) for i, b in enumerate(blocks)
+               if next((ln for ln in b.splitlines() if ln.strip()), "").strip() != "# torch"]
+    runnable = [i for i, _ in listing]
+    (workdir / "snippets.json").write_text(json.dumps(listing))
+    repo = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items() if k != "NBDT_DEVICE"}
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")]))
+    proc = subprocess.run([sys.executable, "-c", DOCS_WORKER, repo, str(DOCS_GUIDE),
+                           DOCS_SCRATCH, str(workdir / "scratch"),
+                           str(workdir / "snippets.json")],
+                          env=env, cwd=workdir, capture_output=True, text=True,
+                          timeout=DOCS_DEADLINE)
+    check(proc.returncode == 0, f"[docs] the worker failed: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(rec["loaded"] == [], f"[docs] the worker loaded {rec['loaded']}")
+    snippets = rec["snippets"]
+    check([s["snippet"] for s in snippets] == runnable and len(runnable) >= 5,
+          f"[docs] ran snippets {[s['snippet'] for s in snippets]} of {runnable}")
+    zero = {"soft_head": 0, "layernorm": 0, "conv3x3": 0}
+    for s in snippets:
+        tag = f"[docs] snippet{s['snippet']}"
+        check(s["device"] == "cuda" and s["outputs_device"] in (None, "cuda:0"),
+              f"{tag} ran on {s['device']} (outputs on {s['outputs_device']})")
+        if s["fused"]:
+            check(s["launches"]["soft_head"] > 0
+                  and {**s["launches"], "soft_head": 0} == zero,
+                  f"{tag} asks for fused=True; launches {s['launches']}")
+            check(s["fused_max_abs_diff"] <= TOL,
+                  f"{tag} B1 vs the plain rules {s['fused_max_abs_diff']} > {TOL}")
+        else:
+            check(s["launches"] == zero, f"{tag} launched {s['launches']}")
+        path = " -> ".join(s["path"]) if s["path"] else "no decisions"
+        fused = (f", B1 within {s['fused_max_abs_diff']:.3g} of the plain rules"
+                 if s["fused"] else "")
+        print(f"[docs] snippet{s['snippet']} on {s['device']}: {s['seconds']:.2f} s wall, "
+              f"path {path}, launches {s['launches']}{fused}; printed "
+              f"{' // '.join(s['lines'])[:300]}", flush=True)
+    torch.cuda.synchronize()
+    out = {"snippets": [{k: v for k, v in s.items() if k != "lines"} for s in snippets],
+           "worker_launches": {k: sum(s["launches"][k] for s in snippets) for k in zero},
+           "launches": read_launches(), "seconds": time.perf_counter() - t0, "card": smi}
+    check(out["launches"] == zero, f"[docs] launches in this process {out['launches']}")
+    print(f"[docs] {len(snippets)} snippets of {DOCS_GUIDE.name} on the card with jax, jaxlib, "
+          f"flax, optax and nbdt_tpu blocked: {sum(s['seconds'] for s in snippets):.2f} s of "
+          f"snippets; kernel launches {out['worker_launches']} in the worker, "
+          f"{out['launches']} here; {smi}", flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The release path: the port's released-checkpoint parity harness
 # ---------------------------------------------------------------------------
 
@@ -4222,6 +4339,8 @@ def main() -> int:
     surface = run_surface_path(Path(__file__).resolve().parent / "build" / "chip_smoke_surface",
                                smi)
     print(f"[surface] the surface phase took {surface['seconds']:.1f} s", flush=True)
+    docs = run_docs_path(Path(__file__).resolve().parent / "build" / "chip_smoke_docs", smi)
+    print(f"[docs] the docs phase took {docs['seconds']:.1f} s", flush=True)
 
     # Kernel times
     head_resnet = time_soft_head(trees["CIFAR10"].arrays, BATCH, FEAT_DIM, 7,
@@ -4274,6 +4393,7 @@ def main() -> int:
         "convert_examples": examples,
         "release": release,
         "surface": surface,
+        "docs": docs,
         "native": native_rec,
         "card": smi}}), flush=True)
 
@@ -4365,6 +4485,7 @@ def main() -> int:
         "launches_on_examples_path": examples["launches"]["soft_head"],
         "launches_on_release_path": release["launches"]["soft_head"],
         "launches_on_surface_path": surface["launches"]["soft_head"],
+        "launches_on_docs_path": docs["worker_launches"]["soft_head"],
         # B1 held to the release tool's soft argmax on each row's features
         "release_gate_launches": release["b1_gate_launches"],
         "release_gate_heads": {row: {k: rec["b1"][k] for k in ("D", "C", "instance",
@@ -4403,6 +4524,7 @@ def main() -> int:
         "launches_on_examples_path": examples["launches"]["layernorm"],
         "launches_on_release_path": release["launches"]["layernorm"],
         "launches_on_surface_path": surface["launches"]["layernorm"],
+        "launches_on_docs_path": docs["worker_launches"]["layernorm"],
         "max_abs_err": ln_err[f32],
         "ms": ln_t[f32]["ms"],
         "plain_ms": ln_t[f32]["plain_ms"],
@@ -4430,6 +4552,7 @@ def main() -> int:
         "launches_on_examples_path": examples["launches"]["conv3x3"],
         "launches_on_release_path": release["launches"]["conv3x3"],
         "launches_on_surface_path": surface["launches"]["conv3x3"],
+        "launches_on_docs_path": docs["worker_launches"]["conv3x3"],
         "max_abs_err": conv_err,
         "ms": conv_t["kernel"]["ms"],
         "plain_ms": conv_t["plain"]["ms"],

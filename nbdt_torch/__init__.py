@@ -44,6 +44,11 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
               the conv probe, the fused head's phase profiler, the conv
               ablation
   scripts/    the reproduction pipelines (bash and PowerShell)
+
+The user guides are at the repository root: docs/torch/MIGRATION.md (from
+upstream nbdt to this package, with runnable snippets), docs/torch/COVERAGE.md
+(each upstream component, its module here and its test) and docs/torch/ZOO.md
+(every --arch name, its key grammar and its converter).
 """
 
 __version__ = "0.1.0"

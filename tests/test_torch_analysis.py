@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from test_torch_port import tree_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 PORTED = ["Noop", "ConfusionMatrix", "IgnoredSamples", "HardEmbeddedDecisionRules",
           "SoftEmbeddedDecisionRules", "Entropy", "VisualizeDecisionNode", "NBDTEntropyMaxMin",

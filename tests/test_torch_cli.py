@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from test_torch_port import resnet_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 IMG = 32
 

@@ -17,6 +17,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from nbdt_torch.ops import conv3x3 as conv
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 SMS = 132  # an H100 SXM
 SHAPES = [(8192, 32, 32), (5, 7, 5), (3, 6, 33), (1, 1, 1), (1, 9, 64), (2, 33, 70)]

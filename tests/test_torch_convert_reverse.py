@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from test_torch_port import REPO
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 import nbdt_torch.serialization as ser
 from nbdt_torch.models.convert import torch_state_dict_to_flax

@@ -10,6 +10,8 @@ normalization in another order).
 import numpy as np
 import pytest
 
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
+
 
 def _datasets(kind, **kw):
     import nbdt_tpu.data as jd

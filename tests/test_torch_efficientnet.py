@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from test_torch_port import random_variables, tree_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 CLASSES = 1000
 RTOL, ATOL = 1e-4, 1e-5

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from test_torch_port import REPO
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 C10 = "CIFAR10"
 

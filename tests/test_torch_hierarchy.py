@@ -13,6 +13,8 @@ import os
 import numpy as np
 import pytest
 
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
+
 
 def _centers(C, D, seed):
     return np.random.RandomState(seed).randn(C, D).astype(np.float32)

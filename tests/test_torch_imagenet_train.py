@@ -39,6 +39,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = {name: os.path.join(REPO, "examples", "imagenet", "configs", f"{name}-nbdt.json")
            for name in ("resnet18", "resnet50", "efficientnet_b7b")}

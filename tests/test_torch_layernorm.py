@@ -8,6 +8,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
+
 
 def _inputs(rows, d, seed=1):
     rng = np.random.RandomState(seed)

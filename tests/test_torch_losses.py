@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from test_torch_port import tree_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 TREES = ["synthetic", "CIFAR10", "CIFAR100", "TinyImagenet200", "Imagenet1000",
          "CIFAR100-wordnet", "dag"]

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from nbdt_torch import native
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 NUMPY_TOL = 1e-6

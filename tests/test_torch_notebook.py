@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from test_torch_port import REPO
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 JAX_NB = os.path.join(REPO, "examples", "load_pretrained_nbdts.ipynb")
 PORT_NB = os.path.join(REPO, "nbdt_torch", "examples", "load_pretrained_nbdts.ipynb")

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from test_torch_train import _assert_state_matches, _bn_counts, _init, _port_model, _trees
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C, IMG, SIZE, GLOBAL = 7, 16, 32, 16

@@ -6,6 +6,7 @@ on the CPU) and to ``nbdt_torch`` with ``device="cpu"``.
 """
 
 import ast
+import contextlib
 import os
 import subprocess
 import sys
@@ -38,6 +39,34 @@ DAG = (
      ("f00000002", "f00000004"), ("f00000002", "f00000005")],
     ["f00000003", "f00000004", "f00000005"],
 )
+
+# torch's intra-op threads for each port test module. The suite runs six
+# xdist workers on the same cores; at torch's default of one thread a core,
+# each worker's small ops mostly wait on the other workers' threads.
+TEST_THREADS = 2
+
+
+@contextlib.contextmanager
+def intra_op_threads(n):
+    """torch on ``n`` intra-op threads inside the block, and the count it
+    had before afterwards."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads():
+    """Pin torch to ``TEST_THREADS`` intra-op threads for the whole module,
+    module-scoped set-up included, and give the worker its own count back
+    afterwards, so the JAX tests that share the worker are unaffected.
+    Every ``tests/test_torch_*.py`` imports this fixture
+    (``test_every_port_test_file_pins_its_threads``)."""
+    with intra_op_threads(TEST_THREADS):
+        yield
 
 
 def _graph_tree(Digraph, Tree, spec):
@@ -237,6 +266,25 @@ def test_port_sources_have_no_jax_imports():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_every_port_test_file_pins_its_threads():
+    """Each ``tests/test_torch_*.py`` imports the autouse ``torch_threads``
+    at module level (or, here, defines it), and this module runs under it."""
+    assert torch.get_num_threads() == TEST_THREADS
+    files = sorted((REPO / "tests").glob("test_torch_*.py"))
+    assert len(files) > 30
+    lacking = []
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        pinned = any(
+            isinstance(node, ast.ImportFrom) and node.module == "test_torch_port"
+            and any(a.name == "torch_threads" and a.asname is None for a in node.names)
+            or isinstance(node, ast.FunctionDef) and node.name == "torch_threads"
+            for node in tree.body)
+        if not pinned:
+            lacking.append(path.name)
+    assert not lacking, f"import torch_threads from test_torch_port in: {lacking}"
 
 
 def test_entry_points_default_to_cuda():

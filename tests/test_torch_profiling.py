@@ -5,6 +5,8 @@ import json
 
 import pytest
 
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
+
 
 @pytest.mark.parametrize("n", [0, 1, 2, 5, 10, 11, 20])
 def test_step_timer_matches_jax(monkeypatch, n):

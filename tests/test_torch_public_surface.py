@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from test_torch_port import REPO
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 VENDORED = ["CIFAR10", "CIFAR100", "TinyImagenet200", "Imagenet1000"]
 LOSSES = ["CrossEntropyLoss", "HardTreeSupLoss", "SoftSegTreeSupLoss", "SoftTreeLoss",

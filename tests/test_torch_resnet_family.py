@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from test_torch_port import random_variables
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5
 

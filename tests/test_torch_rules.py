@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from test_torch_port import tree_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 # "CIFAR100-wordnet" is the vendored WordNet graph: 49 inner nodes of up to 8
 # children (every vendored graph is a tree; "dag" is the multi-path case).

@@ -17,6 +17,8 @@ from pathlib import Path
 
 import pytest
 
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
+
 REPO = Path(__file__).resolve().parent.parent
 JAX_SCRIPTS = REPO / "scripts"
 PORT_SCRIPTS = REPO / "nbdt_torch" / "scripts"

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from test_torch_port import induced_tree_pair, random_variables, tree_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 SEG = ["PascalContext", "LookIntoPerson", "ADE20K", "Cityscapes"]
 SEG_TREES = ["Cityscapes-induced-HRNet-w48", "Cityscapes-induced-HRNet-w18-v1",

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from test_torch_port import REPO, resnet_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 from nbdt_torch.serialization import msgpack_restore, read_msgpack
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from test_torch_port import REPO, induced_tree_pair, resnet_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 IMG = 32
 

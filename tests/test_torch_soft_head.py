@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from test_torch_port import tree_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 
 def _inputs(ta, D, batch=12, seed=0):

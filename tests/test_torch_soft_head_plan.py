@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from test_torch_port import DAG, SYNTHETIC, _graph_tree, grouped_tree as _grouped
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 
 @functools.lru_cache(maxsize=None)

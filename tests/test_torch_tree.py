@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from test_torch_port import tree_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 TREES = ["synthetic", "dag", "CIFAR10", "CIFAR100", "TinyImagenet200", "Imagenet1000"]
 

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from nbdt_torch.tools import verify_release as port_tool
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))

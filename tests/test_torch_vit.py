@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from test_torch_port import tree_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 SMALL = dict(patch=16, dim=128, depth=2, heads=2, num_classes=10)
 VARIANTS = [

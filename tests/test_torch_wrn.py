@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_torch_port import random_variables, tree_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "wrn28_10_keys.json"
 DEPTH, WIDTH, CLASSES = 10, 2, 10

@@ -11,16 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two intra-op threads a test: the suite runs several workers on the
-    same cores, and small ops on every core's thread each then mostly
-    wait on one another."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 
 WRAPS = [

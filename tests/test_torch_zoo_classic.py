@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from test_torch_port import induced_tree_pair, zoo_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 from test_torch_zoo_mobile import keys_and_shapes
 
 # name -> (arch, image, constructor keywords)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from test_torch_port import induced_tree_pair, zoo_pair
+from test_torch_port import torch_threads  # noqa: F401  (autouse)
 
 CASES = {"mobilenet_v2": 32, "mnasnet0_5": 64, "shufflenet_v2_x0_5": 64, "squeezenet1_1": 64}
 NAMES = ["mobilenet_v2", "mnasnet0_5", "mnasnet0_75", "mnasnet1_0", "mnasnet1_3",
