@@ -675,6 +675,8 @@ def profile_ms(fn, n: int = TIMED) -> tuple:
         wall = (time.perf_counter() - t0) * 1e3 / n
     device, ops, seen = {}, {}, {}
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False):
+            continue  # a span's range on the device timeline, not a kernel
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
             device[e.key] = e.self_device_time_total / n / 1e3
             seen[e.key] = e.count

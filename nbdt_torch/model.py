@@ -26,6 +26,7 @@ from .models.convert import pytorchcv_wrn_keys, state_dict_from_flax
 from .models.fold import fold_batchnorm
 from .models.utils import cached_checkpoint, load_torch_checkpoint
 from .ops.soft_traversal import fused_soft_head, prepare_head_constants
+from .profiling import setup_span, span
 from .rules import HardEmbeddedDecisionRules, SoftEmbeddedDecisionRules
 from .serialization import read_msgpack
 from .tree import Tree, dataset_to_dummy_classes
@@ -113,6 +114,7 @@ class NBDT:
 
     Rules = HardEmbeddedDecisionRules
 
+    @setup_span("nbdt_init")
     def __init__(
         self,
         dataset: Optional[str],
@@ -163,6 +165,7 @@ class NBDT:
             model = fold_batchnorm(model)
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self._head = self._build_fused(model, tree) if fused else None
+        self._called = False  # the first forward runs in a ``first_call`` span
 
     def _build_fused(self, model, tree):
         assert isinstance(self, SoftNBDT), (
@@ -181,12 +184,25 @@ class NBDT:
 
     @torch.no_grad()
     def forward(self, x):
-        if self._head is not None:
-            feats = self.model(self._input(x), features_only=True)
-            (leaf_logp,) = fused_soft_head(feats, self._head, want_aux=False)
-            # exp(leaf log-probs) == the rules' raw probability product
-            return TaggedOutput(torch.exp(leaf_logp))
-        return self.rules(self.model(self._input(x)))
+        if not self._called:
+            self._called = True
+            with span("first_call", always=True):
+                return self._forward(x)
+        return self._forward(x)
+
+    def _forward(self, x):
+        with span("request", self.device, rows=len(x)):
+            if self._head is not None:
+                with span("backbone", self.device):
+                    feats = self.model(self._input(x), features_only=True)
+                with span("head", self.device):
+                    (leaf_logp,) = fused_soft_head(feats, self._head, want_aux=False)
+                    # exp(leaf log-probs) == the rules' raw probability product
+                    return TaggedOutput(torch.exp(leaf_logp))
+            with span("backbone", self.device):
+                logits = self.model(self._input(x))
+            with span("head", self.device):
+                return self.rules(logits)
 
     __call__ = forward
 

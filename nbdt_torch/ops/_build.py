@@ -21,6 +21,8 @@ from typing import Dict
 
 import torch
 
+from ..profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nbdt_torch"
 NVCC_FLAGS = (
@@ -51,12 +53,12 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> None:
+def build_all() -> bool:
     """Compile every source whose library is missing; raise with nvcc's
-    output if any compile fails."""
+    output if any compile fails. True if nvcc ran."""
     todo = [src for src in sorted(CSRC.glob("*.cu")) if not _target(src).exists()]
     if not todo:
-        return
+        return False
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
@@ -78,6 +80,7 @@ def build_all() -> None:
             os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     if errors:
         raise RuntimeError("\n".join(errors))
+    return True
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
@@ -88,8 +91,10 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed (in
+    a ``kernel_load`` span, ``built=True`` where nvcc ran)."""
     if name not in _libraries:
-        build_all()
-        _libraries[name] = ctypes.CDLL(str(_target(CSRC / f"{name}.cu")))
+        with span("kernel_load", always=True, kernel=name) as attrs:
+            attrs["built"] = build_all()
+            _libraries[name] = ctypes.CDLL(str(_target(CSRC / f"{name}.cu")))
     return _libraries[name]

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from .losses import (cross_entropy, hard_tree_sup_loss, hard_tree_sup_loss_custom,
                      scheduled_weight, soft_tree_sup_loss)
+from .profiling import first_call_span, span
 from .rules import DeviceTreeArrays, to_device_tree
 from .utils import Colors, generate_checkpoint_fname, progress_bar, resolve_device
 
@@ -286,18 +287,22 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     reported = ("loss", "loss_xent", "loss_tree", "acc")
 
     def core(x, y, tree_weight, xent_weight, count):
-        for param_group in optimizer.param_groups:
-            param_group["lr"] = lr_at(count)
-        model.train()
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
-            logits = forward(x.permute(0, 3, 1, 2))
-        logits = logits.float()
-        loss_x = criterion(logits, y)
-        loss_t = tree_term(logits, y)
-        total = loss_x * xent_weight + loss_t * tree_weight
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        optimizer.step()
+        with span("forward", device):
+            for param_group in optimizer.param_groups:
+                param_group["lr"] = lr_at(count)
+            model.train()
+            with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+                logits = forward(x.permute(0, 3, 1, 2))
+            logits = logits.float()
+        with span("loss", device):
+            loss_x = criterion(logits, y)
+            loss_t = tree_term(logits, y)
+            total = loss_x * xent_weight + loss_t * tree_weight
+        with span("backward", device):
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with span("optimizer", device):
+            optimizer.step()
         logits = logits.detach()
         m = {
             "loss": total.detach(),
@@ -314,9 +319,12 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     if not cached:
         def step(x, y, tree_weight, xent_weight, count):
-            return core(prologue(x), y, tree_weight, xent_weight, count)
+            with span("step", device, rows=len(x)):
+                with span("input", device):
+                    x = prologue(x)
+                return core(x, y, tree_weight, xent_weight, count)
 
-        return step
+        return first_call_span(step)
 
     if normalize is None or batch_size is None:
         raise ValueError("cached=True needs normalize=(mean, std) for the uint8 store and "
@@ -325,20 +333,23 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     def cached_step(images, labels, perm, step_i, generator, tree_weight, xent_weight, count):
         out = []
         for j in range(steps_per_call):
-            idx = perm[(step_i + j) * batch_size:(step_i + j + 1) * batch_size]
-            offsets, flips = draw_augment(generator, batch_size, crop_pad, flip)
-            if rows is not None:
-                idx, offsets = idx[rows], offsets[rows]
-                flips = flips[rows] if flips is not None else None
-            x = images.index_select(0, idx)
-            y = labels.index_select(0, idx)
-            x = _device_augment(x, offsets if crop_pad else None, flips, crop_pad)
-            m = core(prologue(x), y, tree_weight, xent_weight, count + j)
+            with span("step", device, rows=batch_size):
+                with span("input", device):
+                    idx = perm[(step_i + j) * batch_size:(step_i + j + 1) * batch_size]
+                    offsets, flips = draw_augment(generator, batch_size, crop_pad, flip)
+                    if rows is not None:
+                        idx, offsets = idx[rows], offsets[rows]
+                        flips = flips[rows] if flips is not None else None
+                    x = images.index_select(0, idx)
+                    y = labels.index_select(0, idx)
+                    x = prologue(_device_augment(x, offsets if crop_pad else None, flips,
+                                                 crop_pad))
+                m = core(x, y, tree_weight, xent_weight, count + j)
             m.pop("logits")
             out.append(m)
         return out
 
-    return cached_step
+    return first_call_span(cached_step)
 
 
 def _batch_hit_counts(model, prologue, x, y, valid, k, analyzer_fwd, analyzer_k):

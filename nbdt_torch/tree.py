@@ -26,6 +26,7 @@ import numpy as np
 from .assets import get_dataset_wnids
 from .hierarchy.digraph import Digraph, get_leaf_to_path, get_leaves, read_graph
 from .hierarchy.wnid import get_wnids, wnid_to_name
+from .profiling import setup_span
 from .utils import (
     DATASET_TO_NUM_CLASSES,
     dataset_to_default_path_graph,
@@ -155,6 +156,7 @@ class Node:
 class Tree:
     """In-memory hierarchy and its array compiler."""
 
+    @setup_span("tree")
     def __init__(
         self,
         dataset: Optional[str],
