@@ -144,6 +144,7 @@ def main(argv=None) -> dict:
     val_loader = SegDataLoader(val, args.batch_size, drop_last=False)
     x0, _ = next(iter(loader))  # the JAX example's init batch: its draws come first
     torch.manual_seed(0)
+    # channels-last until the trainer places the model itself (models/layout.py)
     model = SegNet(num_classes).to(device, memory_format=torch.channels_last)
     tree = induce_tree(model, classes)
     records = fit(model, to_device_tree(tree.arrays, device), loader, val_loader, args.epochs,

@@ -3,9 +3,14 @@
 Counterpart of ``nbdt_tpu/model.py``. A wrapper composes a backbone
 ``nn.Module`` (NCHW inside) with embedded decision rules. Public inputs keep
 the JAX package's layout, NHWC ``[B, H, W, 3]``; the wrapper permutes once at
-the entry, which hands the backbone a channels-last tensor. The segmentation
-wrappers (``SegNBDT``, ``HardSegNBDT``, ``SoftSegNBDT``) run the rules on
-every pixel and return NHWC maps, as the JAX ones do.
+the entry. The backbone's layout is the one
+:func:`~nbdt_torch.models.layout.conv_memory_format` gives when the wrapper
+places it: contiguous NCHW for f32 convs on CUDA with cuDNN's TF32 off,
+whose engines are NCHW kernels (the input is copied once a request, where
+cuDNN would transpose around every conv), and channels-last otherwise (the
+input an NHWC view, no copy). The segmentation wrappers (``SegNBDT``,
+``HardSegNBDT``, ``SoftSegNBDT``) run the rules on every pixel and return
+NHWC maps, as the JAX ones do.
 
 ``pretrained=True`` loads the released checkpoint of ``(arch, dataset[,
 hierarchy])`` from ``model_urls`` through the local cache
@@ -24,6 +29,7 @@ import torch.nn as nn
 from .hierarchy.generate import CLASSIFIER_NAMES, get_classifier_from_module
 from .models.convert import pytorchcv_wrn_keys, state_dict_from_flax
 from .models.fold import fold_batchnorm
+from .models.layout import NCHW, place_backbone
 from .models.utils import cached_checkpoint, load_torch_checkpoint
 from .ops.soft_traversal import fused_soft_head, prepare_head_constants
 from .profiling import setup_span, span
@@ -163,7 +169,7 @@ class NBDT:
         )
         if fold_bn:
             model = fold_batchnorm(model)
-        self.model = model.to(self.device, memory_format=torch.channels_last).eval()
+        self.model, self._format = place_backbone(model, self.device)
         self._head = self._build_fused(model, tree) if fused else None
         self._called = False  # the first forward runs in a ``first_call`` span
 
@@ -179,8 +185,9 @@ class NBDT:
         return prepare_head_constants(tree.arrays, kernel, bias, device=self.device)
 
     def _input(self, x) -> torch.Tensor:
-        """NHWC images -> an NCHW view with channels-last memory."""
-        return torch.as_tensor(x, device=self.device).permute(0, 3, 1, 2)
+        """NHWC images -> NCHW in the backbone's memory format."""
+        x = torch.as_tensor(x, device=self.device)
+        return x.permute(0, 3, 1, 2).contiguous(memory_format=self._format)
 
     @torch.no_grad()
     def forward(self, x):
@@ -191,15 +198,16 @@ class NBDT:
         return self._forward(x)
 
     def _forward(self, x):
+        layout = "nchw" if self._format == NCHW else "channels_last"
         with span("request", self.device, rows=len(x)):
             if self._head is not None:
-                with span("backbone", self.device):
+                with span("backbone", self.device, layout=layout):
                     feats = self.model(self._input(x), features_only=True)
                 with span("head", self.device):
                     (leaf_logp,) = fused_soft_head(feats, self._head, want_aux=False)
                     # exp(leaf log-probs) == the rules' raw probability product
                     return TaggedOutput(torch.exp(leaf_logp))
-            with span("backbone", self.device):
+            with span("backbone", self.device, layout=layout):
                 logits = self.model(self._input(x))
             with span("head", self.device):
                 return self.rules(logits)
@@ -232,7 +240,8 @@ class SegNBDT(NBDT):
         x = torch.as_tensor(x, device=self.device)
         if x.ndim != 4:
             raise ValueError(f"Input must be (N, H, W, C) for segmentation, not {tuple(x.shape)}")
-        maps = self.model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        maps = self.model(x.permute(0, 3, 1, 2).contiguous(memory_format=self._format))
+        maps = maps.permute(0, 2, 3, 1)
         return TaggedOutput(uncoerce_tensor(self.rules(coerce_tensor(maps)), maps.shape))
 
     __call__ = forward

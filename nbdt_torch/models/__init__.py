@@ -17,6 +17,7 @@ from . import efficientnet as _efficientnet
 from .convert import pytorchcv_wrn_keys, state_dict_from_flax
 from .efficientnet import *  # noqa: F401,F403 (EfficientNet and the b0..b8 x {,b,c} grid)
 from .fold import fold_batchnorm
+from .layout import place_backbone
 from .segnet import SegNet
 from .resnet import (
     BasicBlock,
@@ -161,8 +162,10 @@ def init_model(arch: str, num_classes: int, input_shape, seed: int = 0,
                dtype: torch.dtype = torch.float32, device="cuda"):
     """A backbone with its default init drawn from ``seed`` (the global CPU
     generator seeded inside a fork, so the caller's random state is left as
-    it was), in eval mode on ``device``. ``input_shape`` is one image
-    ``(H, W, 3)``: it sizes the ViTs."""
+    it was), in eval mode on ``device`` with channels-last weights, the
+    layout the trainer runs (an inference wrapper places it again by
+    :func:`~nbdt_torch.models.layout.conv_memory_format`). ``input_shape``
+    is one image ``(H, W, 3)``: it sizes the ViTs."""
     from ..utils import resolve_device
 
     device = resolve_device(device)
@@ -174,14 +177,16 @@ def init_model(arch: str, num_classes: int, input_shape, seed: int = 0,
 
 def make_eval_fn(module: torch.nn.Module, device="cuda"):
     """Eval-mode forward ``x [B, H, W, 3] -> logits`` under ``no_grad``, with
-    the module moved to ``device``."""
+    the module moved to ``device`` in the layout of
+    :func:`~nbdt_torch.models.layout.conv_memory_format`."""
     from ..utils import resolve_device
 
     device = resolve_device(device)
-    module = module.to(device, memory_format=torch.channels_last).eval()
+    module, memory_format = place_backbone(module, device)
 
     @torch.no_grad()
     def forward(x):
-        return module(torch.as_tensor(x, device=device).permute(0, 3, 1, 2))
+        x = torch.as_tensor(x, device=device).permute(0, 3, 1, 2)
+        return module(x.contiguous(memory_format=memory_format))
 
     return forward

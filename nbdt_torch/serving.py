@@ -35,6 +35,7 @@ import torch.nn as nn
 
 from .data.transforms import CIFAR_MEAN, CIFAR_STD
 from .models.fold import fold_batchnorm
+from .models.layout import place_backbone
 from .rules import DeviceTreeArrays, exact_f32, soft_forward, to_device_tree
 from .utils import resolve_device
 
@@ -46,11 +47,12 @@ class ServingModule(nn.Module):
     """``x [B,H,W,3] -> leaf probability distribution [B, C]``, the raw
     product of path probabilities (unnormalized; argmax is the
     prediction). The tree constants that the soft rules read are buffers,
-    so an exported program holds them."""
+    so an exported program holds them. The backbone is placed on their
+    device by :func:`~nbdt_torch.models.layout.place_backbone`."""
 
     def __init__(self, backbone: nn.Module, jt: DeviceTreeArrays, bf16: bool, normalize=None):
         super().__init__()
-        self.backbone = backbone
+        self.backbone, self.memory_format = place_backbone(backbone, jt.membership.device)
         self.bf16 = bf16
         self.uint8_input = normalize is not None
         self._jt = jt
@@ -71,7 +73,7 @@ class ServingModule(nn.Module):
             x = (x.float() - self.mean) * self.inv
         if self.bf16:
             x = x.to(torch.bfloat16)
-        logits = self.backbone(x.permute(0, 3, 1, 2))
+        logits = self.backbone(x.permute(0, 3, 1, 2).contiguous(memory_format=self.memory_format))
         jt = self._jt._replace(membership=self.membership, under=self.under,
                                child_mask=self.child_mask)
         return soft_forward(logits.float(), jt)
@@ -80,8 +82,9 @@ class ServingModule(nn.Module):
 def serving_module(module: nn.Module, tree, bf16: bool = True, fold_bn: bool = False,
                    uint8_input: bool = False, normalize=None, device="cuda") -> ServingModule:
     """The :class:`ServingModule` of ``module`` on ``tree``, in eval mode on
-    ``device`` with channels-last weights (see :func:`make_serving_fn` for
-    the arguments)."""
+    ``device`` in the layout of
+    :func:`~nbdt_torch.models.layout.conv_memory_format` (channels-last for
+    the bf16 default; see :func:`make_serving_fn` for the arguments)."""
     device = resolve_device(device)
     jt = to_device_tree(tree.arrays, device)
     backbone = module
@@ -91,7 +94,6 @@ def serving_module(module: nn.Module, tree, bf16: bool = True, fold_bn: bool = F
         source = backbone
         backbone = source.clone(dtype=torch.bfloat16)
         backbone.load_state_dict(source.state_dict())
-    backbone = backbone.to(device, memory_format=torch.channels_last).eval()
     if uint8_input and normalize is None:
         normalize = (CIFAR_MEAN, CIFAR_STD)
     return ServingModule(backbone, jt, bf16, normalize if uint8_input else None).eval()

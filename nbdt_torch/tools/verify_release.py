@@ -191,18 +191,20 @@ def main(argv=None):
     num_classes = DATASET_TO_NUM_CLASSES[args.dataset]
     with device:  # the random init runs where the weights live; the checkpoint replaces it
         module = get_model(args.arch, num_classes)
-    # checkpoint -> converter -> weights, through the same public path the
-    # wrappers' tests pin (NBDT(pretrained=True, checkpoint_path=)).
-    model = SoftNBDT(
-        dataset=args.dataset, model=module, arch=args.arch,
-        hierarchy=args.hierarchy, path_graph=args.path_graph,
-        path_wnids=args.path_wnids, pretrained=True,
-        checkpoint_path=args.checkpoint, device=device,
-    )
-    hard_rules = HardEmbeddedDecisionRules(tree=model.tree, device=device)
-
-    valset = _build_valset(args, num_classes)
+    # TF32 off before the wrapper is built: it places the backbone in the
+    # layout of f32 convs without TF32 (models/layout.py)
     with full_f32():
+        # checkpoint -> converter -> weights, through the same public path the
+        # wrappers' tests pin (NBDT(pretrained=True, checkpoint_path=)).
+        model = SoftNBDT(
+            dataset=args.dataset, model=module, arch=args.arch,
+            hierarchy=args.hierarchy, path_graph=args.path_graph,
+            path_wnids=args.path_wnids, pretrained=True,
+            checkpoint_path=args.checkpoint, device=device,
+        )
+        hard_rules = HardEmbeddedDecisionRules(tree=model.tree, device=device)
+
+        valset = _build_valset(args, num_classes)
         backbone_top1, soft_top1, hard_top1 = _evaluate(
             model, hard_rules, valset, args.batch_size)
         transcript = _transcript(model, valset, args.transcript_n)

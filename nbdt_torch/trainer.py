@@ -460,6 +460,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.show_progress = show_progress
         self.config = config
+        # channels-last until the trainer places the model itself (models/layout.py)
         self.model = copy.deepcopy(model).to(self.device, memory_format=torch.channels_last)
         self.mesh, self._zero = mesh, zero
         self._group = self._rows = self._forward = None
