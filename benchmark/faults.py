@@ -8,15 +8,28 @@ in this process while it is open; the benchmark's own runs never open one.
   filled from it (serving) or left out of the loss's mean (training).
 - ``state_unchanged``: the training step leaves the weights and the
   optimizer's state as they were.
+- ``exchange_left_out``: DDP's gradient all-reduce skipped, each rank
+  stepping on its own rows' gradient.
+- ``norm_exchange_left_out``: the cross-rank BatchNorm's all-gather and
+  all-reduce skipped, each rank normalising by its own rows' statistics
+  (``nn.BatchNorm2d``'s forward and backward).
+
+And two that end a rank over several cards, for the launch's own tests:
+``rank_exits`` (the process exits with 1 at its first optimizer step) and
+``rank_hangs`` (it stops there for an hour).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import time
 
 import torch
 
-FAULTS = ("answer_altered", "half_batch", "state_unchanged")
+FAULTS = ("answer_altered", "half_batch", "state_unchanged", "exchange_left_out",
+          "norm_exchange_left_out")
+RANK_FAULTS = ("rank_exits", "rank_hangs")
 
 
 @contextlib.contextmanager
@@ -68,5 +81,29 @@ def plant(fault: str):
     elif fault == "state_unchanged":
         with patched(torch.optim.SGD, "step", lambda self, closure=None: None):
             yield
+    elif fault == "exchange_left_out":
+        from torch.nn.parallel import DistributedDataParallel
+
+        forward = DistributedDataParallel.forward
+
+        def unsynced_forward(self, *args, **kwargs):
+            self.require_backward_grad_sync = False  # what ``no_sync()`` sets
+            return forward(self, *args, **kwargs)
+
+        with patched(DistributedDataParallel, "forward", unsynced_forward):
+            yield
+    elif fault == "norm_exchange_left_out":
+        from nbdt_torch.parallel.syncbn import CrossRankBatchNorm2d
+
+        with patched(CrossRankBatchNorm2d, "forward", torch.nn.BatchNorm2d.forward):
+            yield
+    elif fault in RANK_FAULTS:
+        def end(self, closure=None):
+            if fault == "rank_exits":
+                os._exit(1)
+            time.sleep(3600)
+
+        with patched(torch.optim.SGD, "step", end):
+            yield
     else:
-        raise ValueError(f"no fault {fault!r}; the faults are {FAULTS}")
+        raise ValueError(f"no fault {fault!r}; the faults are {FAULTS + RANK_FAULTS}")

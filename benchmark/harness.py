@@ -9,7 +9,9 @@ A cell is ``workloads/<cell>.json``: it names its configuration
 holds the kind's parameters and the limits of the numbers its check
 compares. A metric is ``metrics/<metric>.py``, whose ``read(run)`` returns
 a number or None. ``BENCHMARK.json`` at the checkout's root says which
-metrics each cell reports.
+metrics each cell reports and on how many cards it runs; a cell over
+several cards runs one process a card (``ranks.py``), each through
+:func:`run_cell`.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ from __future__ import annotations
 import contextlib
 import gc
 import importlib.util
-import json
 import math
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -26,18 +28,14 @@ from types import SimpleNamespace
 
 import torch
 
-BENCH = Path(__file__).resolve().parent
-ROOT = BENCH.parent
+from benchmark.cells import BENCH, cell_files
+
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "nbdt_tpu")
 NAME_WIDTH = 120  # characters of a kernel's name kept in the breakdown
 # Intra-op threads of a run: its host work is Python and launches, and a
 # host-bound loop of small requests spread 13.9% over six runs on an H100
 # machine with PyTorch's default (one a core), 3.9% with one.
 HOST_THREADS = 1
-
-
-def load_json(path: Path) -> dict:
-    return json.loads(Path(path).read_text())
 
 
 def load_module(path: Path):
@@ -56,16 +54,6 @@ def import_string(target: str):
     """``package.module:attribute`` -> the attribute."""
     module, _, attr = target.partition(":")
     return getattr(importlib.import_module(module), attr)
-
-
-def cell_files(workload: str, spec: dict = None):
-    """(BENCHMARK.json, the cell, its configuration) of a cell's name."""
-    spec = spec if spec is not None else load_json(ROOT / "BENCHMARK.json")
-    cell = load_json(BENCH / "workloads" / f"{workload}.json")
-    entry = next((w for w in spec["workloads"] if w["name"] == workload), None)
-    if entry is None or (entry["config"], entry["traffic"]) != (cell["config"], cell["traffic"]):
-        raise ValueError(f"{workload}: not in BENCHMARK.json as its file says")
-    return spec, cell, load_json(BENCH / "configs" / f"{cell['config']}.json")
 
 
 def cell_metrics(spec: dict, workload: str, trace: bool) -> list:
@@ -133,17 +121,29 @@ class Phases:
 
 class Context:
     """One run of one cell: its files, seed and device, and the seeded
-    weights, inputs and systems built from them."""
+    weights, inputs and systems built from them. Over several cards,
+    ``group`` (a ``ranks.Group``) is this rank's place among them: every
+    rank draws the same weights and inputs from the seed."""
 
     def __init__(self, workload: str, cell: dict, config: dict, seed: int, device="cuda",
-                 variant: str = "program"):
+                 variant: str = "program", group=None):
         if variant not in ("program", "control"):
             raise ValueError(f"variant must be program or control, not {variant!r}")
         self.workload, self.cell, self.config = workload, cell, config
         self.params, self.seed, self.variant = cell["params"], int(seed), variant
         self.device = torch.device(device)
+        self.group = group
+        self.rank, self.world = (group.rank, group.world) if group is not None else (0, 1)
         self._reference = None
         self._hierarchy = None
+
+    def running(self, t0: float, seconds: float) -> bool:
+        """Whether the window goes on: fewer than ``seconds`` past ``t0`` on
+        the host's clock; over several cards, rank 0's reading of a few
+        calls before, which every rank takes, so that all run the same
+        steps (``ranks.Group.agree``)."""
+        go = time.perf_counter() - t0 < seconds
+        return go if self.group is None else self.group.agree(go)
 
     # seeded inputs ---------------------------------------------------------
     def generator(self, tag: str) -> torch.Generator:
@@ -175,7 +175,9 @@ class Context:
         BatchNorm statistics set from a calibration batch and, unless the
         cell says ``calibrate_classifier: false``, the classifier calibrated
         on its features, so that random weights give spread,
-        image-dependent predictions."""
+        image-dependent predictions. The reference's ``features(x)`` gives
+        rows of features, one an image or one a pixel; its classifier is a
+        matrix or a 1x1 convolution over them."""
         if self._reference is None:
             with precision(False):
                 self._reference = self._seeded_reference()
@@ -231,10 +233,11 @@ class Context:
             if not self.params.get("calibrate_classifier", True):
                 return model.eval()
             feats = model.eval().features(x)
-            C, D = model.classifier.weight.shape
+            weight = model.classifier.weight
+            C, D = weight.shape[0], weight[0].numel()
             w = torch.randn(C, D, generator=gen, device=self.device)
             w = w * (3.0 / math.sqrt(D)) / (feats.std(0) + 1e-6)
-            model.classifier.weight.copy_(w)
+            weight.copy_(w.view_as(weight))
             model.classifier.bias.copy_(-(w @ feats.mean(0)))
         return model
 
@@ -355,34 +358,72 @@ def reduce_trace(events, t0: int, t1: int, phases: Phases) -> dict:
     }
 
 
+class BlockedModules(RuntimeError):
+    """A rank loaded modules that the port's runs may not load."""
+
+
+def merge_checks(parts: list) -> dict:
+    """Every rank's compared numbers as one: each number's worst reading
+    over the ranks that compare it, beside its limit."""
+    merged = {}
+    for checks in parts:
+        for name, (value, limit) in checks.items():
+            merged[name] = (worst(merged[name][0], value) if name in merged else value, limit)
+    return merged
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda",
              variant: str = "program", t0: float = None, spec: dict = None,
-             cell: dict = None, config: dict = None, keep_facts: bool = False) -> dict:
+             cell: dict = None, config: dict = None, keep_facts: bool = False,
+             group=None) -> dict:
     """One run of one cell: set-up, the window (traced with ``trace``), the
     correctness check, the metrics. Returns the result line's object, with
     the numbers compared under ``checks``, last; ``keep_facts`` adds the
-    window's scalar facts under ``facts``."""
+    window's scalar facts under ``facts``.
+
+    Over several cards every rank calls it with its ``group``: the ranks
+    meet before and after each phase, and rank 0 alone returns the result
+    (the others None), from every rank's checks (``correct`` only if all
+    hold), the largest peak, the mean busy seconds, and its own window,
+    trace and spans. It raises :class:`BlockedModules` where another rank
+    loaded a module that the port's runs may not load."""
     t0 = time.perf_counter() if t0 is None else t0
     if cell is None or config is None:
         spec, cell, config = cell_files(workload, spec)
     kind = load_module(BENCH / "traffic" / f"{cell['kind']}.py")
     with precision(config["precision"]["tf32"]):
-        ctx = Context(workload, cell, config, seed, device, variant)
+        ctx = Context(workload, cell, config, seed, device, variant, group)
         state = kind.setup(ctx)
         sync(device)
+        if group is not None:
+            group.barrier()  # set-up ends when the slowest rank's does
         setup_s = time.perf_counter() - t0
         phases = Phases()
         cuda = ctx.device.type == "cuda"
         trace = trace and cuda  # a device trace comes from the card alone
         tracer = Tracer() if trace else contextlib.nullcontext()
         with tracer:
+            if group is not None:
+                group.barrier()  # every rank's profiler has started
             facts = kind.window(state, seconds, phases)
         summary = tracer.summary(facts["t0_ns"], facts["t1_ns"], phases) if trace else None
         peak = torch.cuda.max_memory_allocated(ctx.device) if cuda else 0
         checks = kind.check(state)
+    if group is not None:
+        parts = group.gather({"checks": checks, "peak": peak, "blocked": loaded_blocked_modules(),
+                              "busy_s": summary["busy_s"] if summary else None})
+        if parts is None:
+            return None
+        blocked = {f"rank {r}": p["blocked"] for r, p in enumerate(parts) if p["blocked"]}
+        if blocked:
+            raise BlockedModules(f"modules the port's runs may not load were loaded: {blocked}")
+        checks = merge_checks([p["checks"] for p in parts])
+        peak = max(p["peak"] for p in parts)
+        if summary is not None:
+            summary["busy_s"] = statistics.mean(p["busy_s"] for p in parts)
     correct = all(math.isfinite(v) and v <= limit for v, limit in checks.values())
     run = SimpleNamespace(setup_s=setup_s, trace=summary, config=config, cell=cell,
-                          context=ctx, **facts)
+                          context=ctx, chips=ctx.world, **facts)
     metrics = {}
     for name in cell_metrics(spec, workload, trace) if spec else []:
         entry = next(m for m in spec["end_to_end"] + spec["per_layer"] if m["name"] == name)
@@ -397,7 +438,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
         "device": {
             "platform": "gpu" if cuda else "cpu",
             "kind": torch.cuda.get_device_name(ctx.device) if cuda else "cpu",
-            "count": 1,
+            "count": ctx.world,
             "memory_peak_bytes": int(peak),
         },
     }

@@ -16,17 +16,17 @@ def idle_percent(run):
 
 
 def mfu_percent(run, images: str, train: bool):
-    """Matrix FLOPs a second over the f32 peak, in a traced run on the card:
-    ``images`` the run's fact that counts the images the window completed,
-    each at the reference's count of a served image or (``train``) of a
-    training step's image."""
+    """Matrix FLOPs a second over the f32 peak of the run's cards, in a
+    traced run on the card: ``images`` the run's fact that counts the
+    images the window completed (over every card), each at the reference's
+    count of a served image or (``train``) of a training step's image."""
     n = getattr(run, images, None)
     if not run.trace or not n or run.window_s <= 0:
         return None
     ctx = run.context
     flops = work.flops_per_image(ctx.build_reference, ctx.hierarchy,
                                  run.config["model"]["image_size"], train)
-    return 100.0 * n / run.window_s * flops / work.PEAK_F32_FLOPS
+    return 100.0 * n / run.window_s * flops / (run.chips * work.PEAK_F32_FLOPS)
 
 
 def roofline_percent(run, kernel: str, least_seconds: float):

@@ -1,6 +1,7 @@
-"""The benchmark's data and yardstick on the CPU: every cell's files, the
-traffic's seeds, the frozen work counts, the trace reduction and the
-metric readers, and a run's refusals (no card; JAX loaded)."""
+"""The benchmark's data and yardstick on the CPU: every cell's files and
+its CPU size, the traffic's seeds, every configuration's frozen work
+counts, the trace reduction and the metric readers, and a run's refusals
+(too few cards; JAX loaded)."""
 
 import json
 import os
@@ -11,36 +12,81 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from bench_testlib import ROOT, tiny_cell
-from benchmark import harness
+from bench_testlib import (CELLS, CONFIGS, ROOT, SPEC, WAITING, WORKLOADS, cell_file, chips_of,
+                           tiny_cell)
+from benchmark import cells, faults, harness
 from benchmark.reference import work
 from benchmark.reference.tree import Hierarchy, hierarchy
 
-SPEC = harness.load_json(ROOT / "BENCHMARK.json")
-WORKLOADS = [w["name"] for w in SPEC["workloads"]]
 METRICS = SPEC["end_to_end"] + SPEC["per_layer"]
+READERS = sorted(p.name[:-len(".py")] for p in (cells.BENCH / "metrics").glob("*.py"))
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_every_cell_names_files_that_exist(workload):
-    spec, cell, config = harness.cell_files(workload)
+    spec, cell, config = cells.cell_files(workload)
     assert cell["why"] == next(w["why"] for w in spec["workloads"] if w["name"] == workload)
-    kind = harness.load_module(harness.BENCH / "traffic" / f"{cell['kind']}.py")
+    kind = harness.load_module(cells.BENCH / "traffic" / f"{cell['kind']}.py")
     assert all(callable(getattr(kind, f)) for f in ("setup", "window", "check"))
     entry = next(c for c in spec["configs"] if c["name"] == cell["config"])
-    assert harness.load_json(ROOT / entry["file"])["name"] == cell["config"]
+    assert cells.load_json(ROOT / entry["file"])["name"] == cell["config"]
     assert set(cell["limits"]), "a cell compares at least one number"
     reports = harness.cell_metrics(spec, workload, trace=False)
     assert "setup_s" in reports and len(reports) >= 2
     assert harness.cell_metrics(spec, workload, trace=True), "at least one per-layer metric"
+    assert cell["faults"] and set(cell["faults"]) <= set(faults.FAULTS)
     hierarchy(config)  # the vendored tree parses
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in METRICS])
+@pytest.mark.parametrize("workload", CELLS)
+def test_every_cell_states_its_cpu_size(workload):
+    """A cell's ``tiny`` form: parameters it has, on no more ranks than its
+    cards; and the parameters of its test on the card."""
+    cell = cell_file(workload)
+    tiny, chips = cell["tiny"], chips_of(workload)
+    assert set(tiny) <= {"params", "model", "program", "ranks", "why"}
+    assert set(tiny["params"]) <= set(cell["params"])
+    assert set(cell["control_test"]) <= set(cell["params"])
+    assert 1 <= tiny.get("ranks", 1) <= chips and (chips == 1) == (tiny.get("ranks", 1) == 1)
+    _, _, config = tiny_cell(workload)
+    assert set(config["model"]) == set(cells.load_json(
+        cells.BENCH / "configs" / f"{cell['config']}.json")["model"])
+
+
+def test_every_cell_file_is_a_cell_or_waits():
+    """A file of ``workloads/`` is a cell of BENCHMARK.json, or waits
+    outside it for a later PR with the cards it will ask for and why."""
+    files = sorted(p.stem for p in (cells.BENCH / "workloads").glob("*.json"))
+    assert files == sorted(CELLS)
+    for workload in WAITING:
+        waiting = cell_file(workload)["waiting"]
+        assert waiting["chips"] in (1, 4) and waiting["why"]
+
+
+@pytest.mark.parametrize("workload", WAITING)
+def test_run_refuses_a_waiting_cell(workload):
+    out = subprocess.run([sys.executable, "benchmark/run.py", "--workload", workload, "--seed",
+                          "1", "--seconds", "1", "--trace", "0"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and out.stdout == ""
+    assert "not in BENCHMARK.json" in out.stderr
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_every_configuration_states_its_work(name):
+    config = cells.load_json(cells.BENCH / "configs" / f"{name}.json")
+    flops = config["flops_per_image"]
+    assert isinstance(flops["serve"], int) and flops["serve"] > 0
+    assert isinstance(flops.get("train", 1), int)
+
+
+@pytest.mark.parametrize("metric", sorted({m["name"] for m in METRICS} | set(READERS)))
 def test_every_metric_has_a_reader(metric):
-    reader = harness.load_module(harness.BENCH / "metrics" / f"{metric}.py")
+    """Every metric of BENCHMARK.json has a reader, and every reader loads
+    (those of a waiting cell's metrics too)."""
+    reader = harness.load_module(cells.BENCH / "metrics" / f"{metric}.py")
     assert callable(reader.read)
-    entry = next(m for m in METRICS if m["name"] == metric)
+    entry = next((m for m in METRICS if m["name"] == metric), {})
     for w in entry.get("workloads", []):
         assert w in WORKLOADS
     if "moves" in entry:
@@ -55,11 +101,12 @@ def test_benchmark_json_keeps_the_contract_keys():
     layers = {}
     for m in SPEC["per_layer"]:
         layers.setdefault(m["moves"], set()).add(m["layer"])
-    assert all(w["chips"] == 1 for w in SPEC["workloads"])
+    chips = [w["chips"] for w in SPEC["workloads"]]
+    assert set(chips) <= {1, 4}
     assert any(m["name"] == "setup_s" and m["bound"] <= 0.25 for m in SPEC["end_to_end"])
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload", CELLS)
 def test_same_seed_same_inputs_and_weights(workload):
     _, cell, config = tiny_cell(workload)
     one, two, other = (harness.Context(workload, cell, config, s, "cpu")
@@ -73,38 +120,33 @@ def test_same_seed_same_inputs_and_weights(workload):
 
 def test_train_store_is_seeded():
     _, cell, config = tiny_cell("resnet18_cifar10.train")
-    kind = harness.load_module(harness.BENCH / "traffic" / "train_steps.py")
+    kind = harness.load_module(cells.BENCH / "traffic" / "train_steps.py")
     states = [kind.setup(harness.Context("t", cell, config, s, "cpu")) for s in (9, 9)]
     for key in ("images", "labels", "perm_start"):
         assert torch.equal(states[0][key], states[1][key])
     assert states[0]["losses"] == states[1]["losses"]
 
 
-# Matrix FLOPs of one image, 2 a multiply-add, direct convolution. ResNet18
-# at 32px: the 3x3 stem 3,538,944, the four stages' 3x3 and 1x1 shortcut
-# convolutions 1,107,296,256, the classifier 10,240; the soft rules 4 x 10
-# classes x 18 child slots = 720. ViT-B/16 at 224px (197 tokens): the patch
-# convolution 231,211,008, 12 layers of QKV, scores, values, projection and
-# MLP 34,894,909,440, the classifier 1,536,000, the rules 4 x 1000 x 1998.
-# A SoftTreeSupLoss step: three times the forward, less the stem's input
-# gradient, and the rules' two backward products.
-SERVED = {"resnet18_cifar10": 1_110_846_160, "vit_b16_imagenet1000": 35_135_648_448}
-TRAINED = {"resnet18_cifar10": 3 * 1_110_845_440 - 3_538_944 + 2 * 720}
+def frozen_flops(name: str) -> dict:
+    """A configuration's matrix FLOPs of one image as its file states them
+    (and derives them, under ``why``)."""
+    return cells.load_json(cells.BENCH / "configs" / f"{name}.json")["flops_per_image"]
 
 
-@pytest.mark.parametrize("name", sorted(SERVED))
+@pytest.mark.parametrize("name", CONFIGS)
 def test_flop_counts_of_the_published_architectures(name):
-    config = harness.load_json(harness.BENCH / "configs" / f"{name}.json")
+    config = cells.load_json(cells.BENCH / "configs" / f"{name}.json")
     ctx = harness.Context(name, {"params": {}}, config, 1, "cpu")
     size = config["model"]["image_size"]
-    assert work.flops_per_image(ctx.build_reference, ctx.hierarchy, size) == SERVED[name]
-    if name in TRAINED:
+    frozen = frozen_flops(name)
+    assert work.flops_per_image(ctx.build_reference, ctx.hierarchy, size) == frozen["serve"]
+    if "train" in frozen:
         assert work.flops_per_image(ctx.build_reference, ctx.hierarchy, size,
-                                    train=True) == TRAINED[name]
+                                    train=True) == frozen["train"]
 
 
 def test_work_counts_of_the_kernels():
-    config = harness.load_json(harness.BENCH / "configs" / "resnet18_cifar10.json")
+    config = cells.load_json(cells.BENCH / "configs" / "resnet18_cifar10.json")
     h = hierarchy(config)
     assert work.tree_sizes(h) == {"C": 10, "S": 18, "pairs": 34}  # path lengths 3 and 4
     head = work.head_work(h, 8192, 512)
@@ -113,8 +155,8 @@ def test_work_counts_of_the_kernels():
         head["bytes"] / work.PEAK_BYTES_PER_S)
     ln = work.layernorm_work(256 * 197, 768)
     assert ln["bytes"] == 8 * 256 * 197 * 768 + 8 * 768
-    assert 34e9 < SERVED["vit_b16_imagenet1000"] < 36e9  # ViT-B/16: 17.6 GMACs
-    assert 1.1e9 < SERVED["resnet18_cifar10"] < 1.2e9  # CIFAR ResNet18: 0.56 GMACs
+    assert 34e9 < frozen_flops("vit_b16_imagenet1000")["serve"] < 36e9  # ViT-B/16: 17.6 GMACs
+    assert 1.1e9 < frozen_flops("resnet18_cifar10")["serve"] < 1.2e9  # CIFAR ResNet18: 0.56 GMACs
 
 
 def test_reduce_trace_counts_the_busy_union_and_names_the_gaps():
@@ -132,26 +174,43 @@ def test_reduce_trace_counts_the_busy_union_and_names_the_gaps():
 
 
 def test_readers_of_a_traced_run():
-    config = harness.load_json(harness.BENCH / "configs" / "resnet18_cifar10.json")
-    _, cell, _ = harness.cell_files("resnet18_cifar10.offline")
+    config = cells.load_json(cells.BENCH / "configs" / "resnet18_cifar10.json")
+    _, cell, _ = cells.cell_files("resnet18_cifar10.offline")
     ctx = harness.Context("resnet18_cifar10.offline", cell, config, 1, "cpu")
     trace = {"busy_s": 9.0, "window_s": 10.0,
              "kernels": [("void soft_head_stream<8, 4>(float const*)", 20e-6)] * 3
              + [("cudnn_conv", 1e-3)]}
     run = SimpleNamespace(trace=trace, window_s=10.0, images=290000, requests=35,
-                          config=config, cell=cell, context=ctx, setup_s=12.0)
-    read = {m: harness.load_module(harness.BENCH / "metrics" / f"{m}.py").read
+                          config=config, cell=cell, context=ctx, setup_s=12.0, chips=1)
+    read = {m: harness.load_module(cells.BENCH / "metrics" / f"{m}.py").read
             for m in ("device_idle.offline", "mfu.serve", "b1_roofline.serve",
                       "serve_images_per_s", "setup_s")}
     assert read["device_idle.offline"](run) == pytest.approx(10.0)
     assert read["serve_images_per_s"](run) == 29000
     assert read["mfu.serve"](run) == pytest.approx(
-        100 * 29000 * SERVED["resnet18_cifar10"] / 67e12)
+        100 * 29000 * frozen_flops("resnet18_cifar10")["serve"] / 67e12)
+    run.chips = 4  # the same images over four cards: a quarter of the share
+    assert read["mfu.serve"](run) == pytest.approx(
+        100 * 29000 * frozen_flops("resnet18_cifar10")["serve"] / (4 * 67e12))
+    run.chips = 1
     head = work.head_work(ctx.hierarchy, 8192, 512)
     assert read["b1_roofline.serve"](run) == pytest.approx(
         100 * work.least_seconds(head["flops"], head["bytes"]) / 20e-6)
     run.trace = None
     assert read["mfu.serve"](run) is None and read["b1_roofline.serve"](run) is None
+
+
+def test_nccl_reader_sums_the_collectives_a_step():
+    read = harness.load_module(cells.BENCH / "metrics" / "nccl_ms.train.py").read
+    trace = {"busy_s": 9.0, "window_s": 10.0,
+             "kernels": [("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevComm*)", 2e-3)] * 6
+             + [("ncclKernel_AllGather_RING_LL_Sum_int8_t", 1e-4)] * 2 + [("cudnn_conv", 1e-2)]}
+    run = SimpleNamespace(trace=trace, steps=4)
+    assert read(run) == pytest.approx(1000 * (12e-3 + 2e-4) / 4)
+    run.trace = {**trace, "kernels": [("cudnn_conv", 1e-2)]}  # one card: no collective
+    assert read(run) is None
+    run.trace = None
+    assert read(run) is None
 
 
 def test_tree_parser_refuses_a_graph_that_is_not_a_tree(tmp_path):
@@ -180,10 +239,10 @@ def test_the_harness_loads_no_jax(tmp_path):
     code = BLOCKER + r"""
 import glob, runpy
 sys.path.insert(0, ".")
-from benchmark import harness, faults, calibrate
+from benchmark import cells, harness, faults, calibrate, ranks
 from benchmark.reference import train, tree, work, resnet, vit
 for path in glob.glob("benchmark/traffic/*.py") + glob.glob("benchmark/metrics/*.py"):
-    harness.load_module(harness.BENCH / path.split("benchmark/", 1)[1])
+    harness.load_module(cells.BENCH / path.split("benchmark/", 1)[1])
 import nbdt_torch, nbdt_torch.model, nbdt_torch.trainer, nbdt_torch.rules
 sys.argv = ["run.py", "--workload", "resnet18_cifar10.offline", "--seed", "1",
             "--seconds", "1", "--trace", "0"]
@@ -200,10 +259,11 @@ print("loaded", harness.loaded_blocked_modules())
     assert "exit 2" in out.stdout and "loaded []" in out.stdout, out.stdout
 
 
-def test_run_without_a_card_exits_with_no_result():
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_run_without_a_card_exits_with_no_result(workload):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     out = subprocess.run([sys.executable, "benchmark/run.py", "--workload",
-                          "resnet18_cifar10.train", "--seed", str(2 ** 31 + 5), "--seconds",
+                          workload, "--seed", str(2 ** 31 + 5), "--seconds",
                           "1", "--trace", "1"], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode != 0 and out.stdout == ""

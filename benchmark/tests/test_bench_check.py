@@ -1,7 +1,8 @@
-"""The correctness check of every cell, driven on the CPU at a tiny size
-through the harness's own run (no look for a card): a sound run of the
-program comes out correct, and each fault the cell can have, planted in
-the program under the timed path, comes out not correct."""
+"""The correctness check of every cell, driven on the CPU at the size its
+file states through the harness's own run (no look for a card; over
+several cards, gloo ranks on the CPU): a sound run of the program comes
+out correct, and each fault the cell can have (its file's ``faults``),
+planted in the program under the timed path, comes out not correct."""
 
 import json
 import math
@@ -9,20 +10,10 @@ import math
 import pytest
 import torch
 
-from bench_testlib import run_tiny
+from bench_testlib import CELLS, cell_file, run_tiny
 from benchmark import faults
 
-CELLS = ("resnet18_cifar10.offline", "vit_b16_imagenet1000.offline",
-         "resnet18_cifar10.train")
-CELL_FAULTS = [
-    ("resnet18_cifar10.offline", "answer_altered"),
-    ("resnet18_cifar10.offline", "half_batch"),
-    ("vit_b16_imagenet1000.offline", "answer_altered"),
-    ("vit_b16_imagenet1000.offline", "half_batch"),
-    ("resnet18_cifar10.train", "answer_altered"),
-    ("resnet18_cifar10.train", "half_batch"),
-    ("resnet18_cifar10.train", "state_unchanged"),
-]
+CELL_FAULTS = [(w, f) for w in CELLS for f in cell_file(w)["faults"]]
 
 
 @pytest.fixture(autouse=True)
@@ -45,22 +36,27 @@ def test_sound_run_is_correct(workload):
 
 @pytest.mark.parametrize("workload,fault", CELL_FAULTS)
 def test_planted_fault_is_caught(workload, fault):
-    with faults.plant(fault):
-        result = run_tiny(workload)
+    result = run_tiny(workload, fault=fault)
     assert not result["correct"], result["checks"]
     json.dumps(result, allow_nan=False)  # the result line stays JSON
 
 
 def test_faults_are_undone():
     from nbdt_torch import model, trainer
+    from nbdt_torch.parallel.syncbn import CrossRankBatchNorm2d
 
-    before = (model.NBDT.forward, model.NBDT.__call__, trainer.cross_entropy,
-              torch.optim.SGD.step)
-    for fault in faults.FAULTS:
+    from torch.nn.parallel import DistributedDataParallel
+
+    def now():
+        return (model.NBDT.forward, model.NBDT.__call__, trainer.cross_entropy,
+                torch.optim.SGD.step, DistributedDataParallel.forward,
+                CrossRankBatchNorm2d.forward)
+
+    before = now()
+    for fault in faults.FAULTS + faults.RANK_FAULTS:
         with faults.plant(fault):
-            pass
-    assert before == (model.NBDT.forward, model.NBDT.__call__, trainer.cross_entropy,
-                      torch.optim.SGD.step)
+            assert now() != before
+    assert before == now()
     with pytest.raises(ValueError):
         with faults.plant("no_such_fault"):
             pass

@@ -1,14 +1,16 @@
 """The benchmark's plain reference against the program at tiny sizes on
-the CPU: the soft rules and decision paths on both vendored trees, the
-two backbones from one state dict, and one SoftTreeSupLoss SGD step."""
+the CPU: the soft rules and decision paths on every configuration's
+vendored tree, every serving cell's backbone from one state dict, one
+SoftTreeSupLoss SGD step, and the seeded weights of a reference whose
+classifier is a 1x1 convolution."""
 
 import copy
 
 import pytest
 import torch
 
-from bench_testlib import tiny_cell
-from benchmark import harness
+from bench_testlib import CONFIGS, cells_of_kind, tiny_cell
+from benchmark import cells, harness
 from benchmark.reference import train as ref_train
 from benchmark.reference.tree import SoftRules, hierarchy
 
@@ -21,14 +23,13 @@ def two_threads():
     torch.set_num_threads(saved)
 
 
-@pytest.mark.parametrize("workload", ["resnet18_cifar10.offline",
-                                      "vit_b16_imagenet1000.offline"])
-def test_soft_rules_and_paths_match_the_program(workload):
+@pytest.mark.parametrize("name", CONFIGS)
+def test_soft_rules_and_paths_match_the_program(name):
     from nbdt_torch.rules import SoftEmbeddedDecisionRules
     from nbdt_torch.ops.soft_traversal import fused_soft_head, prepare_head_constants
 
-    _, cell, config = tiny_cell(workload)
-    ctx = harness.Context(workload, cell, config, 3, "cpu")
+    config = cells.load_json(cells.BENCH / "configs" / f"{name}.json")
+    ctx = harness.Context(name, {"params": {}}, config, 3, "cpu")
     tree = ctx.program_tree()
     rules = SoftRules(hierarchy(config), "cpu")
     assert rules.h.wnids == list(tree.wnids_leaves)
@@ -52,8 +53,7 @@ def test_soft_rules_and_paths_match_the_program(workload):
     assert torch.allclose(leaf.exp(), rules.probs(feats @ W), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("workload", ["resnet18_cifar10.offline",
-                                      "vit_b16_imagenet1000.offline"])
+@pytest.mark.parametrize("workload", cells_of_kind("closed_loop"))
 def test_backbones_match_the_program(workload):
     _, cell, config = tiny_cell(workload)
     ctx = harness.Context(workload, cell, config, 4, "cpu")
@@ -69,7 +69,7 @@ def test_backbones_match_the_program(workload):
 def test_one_sgd_step_matches_the_program():
     _, cell, config = tiny_cell("resnet18_cifar10.train")
     cell["params"]["checked_steps"] = 1
-    kind = harness.load_module(harness.BENCH / "traffic" / "train_steps.py")
+    kind = harness.load_module(cells.BENCH / "traffic" / "train_steps.py")
     ctx = harness.Context("resnet18_cifar10.train", cell, config, 6, "cpu")
     state = kind.setup(ctx)
     p, opt = cell["params"], config["train"]
@@ -94,3 +94,20 @@ def test_one_sgd_step_matches_the_program():
     for name, w in ref.params.items():
         change, want = state["p_after"][name] - state["p0"][name], w.detach() - state["p0"][name]
         assert float((change - want).norm()) <= 1e-2 * float(want.norm()), name
+
+
+def test_a_classifier_of_any_shape_is_calibrated():
+    """A 1x1-convolution classifier over one feature row a pixel takes the
+    draws a matrix would, reshaped: per-pixel logits that differ between
+    pixels and centre on nought."""
+    _, cell, config = tiny_cell("resnet18_cifar10.offline")
+    config.update(reference="bench_testlib:PixelNet")
+    config["model"].update(num_classes=10, feature_dim=16, image_size=8)
+    ctx = harness.Context("pixels", cell, config, 5, "cpu")
+    model = ctx.reference()
+    assert model.classifier.weight.shape == (10, 16, 1, 1)
+    x = ctx.images(4, "probe").permute(0, 3, 1, 2)
+    with torch.no_grad():
+        logits = model(x).permute(0, 2, 3, 1).reshape(-1, 10)
+    assert logits.std(0).mean() > 0.5
+    assert logits.mean(0).abs().max() < 0.5 * logits.std(0).mean()

@@ -10,11 +10,11 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-import bench_testlib  # noqa: F401  (puts the checkout on sys.path)
-from benchmark import harness
+import bench_testlib
+from benchmark import cells, harness
 
 T0 = 10_000_000_000  # the window's start, ns
-SERVE = ["resnet18_cifar10.offline", "vit_b16_imagenet1000.offline"]
+SERVE = bench_testlib.cells_of_kind("closed_loop")
 
 
 def record(name, start_s, end_s, device_ms=None, device_start_ms=None):
@@ -88,7 +88,7 @@ def kept(monkeypatch):
 
 
 def read(metric, run):
-    return harness.load_module(harness.BENCH / "metrics" / f"{metric}.py").read(run)
+    return harness.load_module(cells.BENCH / "metrics" / f"{metric}.py").read(run)
 
 
 @pytest.mark.parametrize("metric", sorted(EXPECTED))
@@ -118,7 +118,7 @@ def test_reader_gives_none_with_nothing_to_read(kept, monkeypatch, metric, case)
 
 
 def test_every_span_reader_is_in_the_benchmark():
-    spec = harness.load_json(bench_testlib.ROOT / "BENCHMARK.json")
+    spec = cells.load_json(bench_testlib.ROOT / "BENCHMARK.json")
     names = {m["name"] for m in spec["per_layer"] if m["source"] == "program_span"}
     assert names == set(EXPECTED) | set(ABSENT)
 
@@ -135,7 +135,7 @@ def test_request_splits_into_backbone_head_and_gap_on_the_card(card, workload):
     """A traced run: the medians of backbone, head and the gap to the next
     request add up to the window's mean request within 2%."""
     result = harness.run_cell(workload, 20261018, 4, True, keep_facts=True,
-                              spec=harness.load_json(bench_testlib.ROOT / "BENCHMARK.json"))
+                              spec=cells.load_json(bench_testlib.ROOT / "BENCHMARK.json"))
     m = {k: v["value"] for k, v in result["metrics"].items()}
     period = 1000 * result["facts"]["window_s"] / result["facts"]["requests"]
     total = m["backbone_ms.serve"] + m["head_ms.serve"] + m["request_gap_ms.serve"]

@@ -95,7 +95,9 @@ def snapshot(tensors: dict) -> dict:
     return {k: (None if v is None else v.detach().clone()) for k, v in tensors.items()}
 
 
-def setup(ctx):
+def setup(ctx, program=PortTrainer):
+    """The store, the draws and the one training object (``program``, or
+    the control), driven through the checked steps."""
     p = ctx.params
     size = ctx.config["model"]["image_size"]
     gen, classes = ctx.generator("store"), ctx.config["model"]["num_classes"]
@@ -114,7 +116,7 @@ def setup(ctx):
     else:
         from nbdt_torch.rules import to_device_tree
 
-        system = PortTrainer(ctx, p, to_device_tree(ctx.program_tree().arrays, ctx.device))
+        system = program(ctx, p, to_device_tree(ctx.program_tree().arrays, ctx.device))
     losses, grads = [], None
     for k in range(p["checked_steps"]):  # the first steps, through the window's call
         losses.append(system.step(images, labels, perm, k, aug))
