@@ -229,22 +229,25 @@ class SoftNBDT(NBDT):
 
 class SegNBDT(NBDT):
     """Per-pixel decision rules for segmentation (the reference's
-    model.py:376-387). Takes NHWC images; the backbone's ``[N, C, H, W]``
+    model.py:376-387). Takes NHWC images; the backbone's ``[N, C, h, w]``
     class maps are permuted to NHWC, flattened so that every pixel is a row,
-    run through the rules once and returned as ``[N, H, W, C]``, as the JAX
+    run through the rules once and returned as ``[N, h, w, C]``, as the JAX
     package's. ``fused=True`` is refused: segmentation keeps the plain rules
-    (exact f32 node decisions) in both packages."""
+    (exact f32 node decisions) in both packages. Calls go through
+    ``NBDT.forward``: the ``request`` span (``rows``: images) holds
+    ``backbone`` and ``head`` (``rows``: pixels)."""
 
-    @torch.no_grad()
-    def forward(self, x):
+    def _forward(self, x):
         x = torch.as_tensor(x, device=self.device)
         if x.ndim != 4:
             raise ValueError(f"Input must be (N, H, W, C) for segmentation, not {tuple(x.shape)}")
-        maps = self.model(x.permute(0, 3, 1, 2).contiguous(memory_format=self._format))
-        maps = maps.permute(0, 2, 3, 1)
-        return TaggedOutput(uncoerce_tensor(self.rules(coerce_tensor(maps)), maps.shape))
-
-    __call__ = forward
+        layout = "nchw" if self._format == NCHW else "channels_last"
+        with span("request", self.device, rows=len(x)):
+            with span("backbone", self.device, layout=layout):
+                maps = self.model(self._input(x)).permute(0, 2, 3, 1)
+            n, h, w, _ = maps.shape
+            with span("head", self.device, rows=n * h * w):
+                return TaggedOutput(uncoerce_tensor(self.rules(coerce_tensor(maps)), maps.shape))
 
 
 class HardSegNBDT(SegNBDT):

@@ -1,8 +1,8 @@
 """Backbones of the port: the CIFAR and torchvision ResNets, the WideResNets,
 the EfficientNets, the ViTs, the rest of torchvision's zoo (MobileNetV2,
 DenseNet, VGG, AlexNet, GoogLeNet, Inception v3, MNASNet, SqueezeNet,
-ShuffleNetV2), the seg trainer's SegNet, BN folding, the converter and the
-registry.
+ShuffleNetV2), the seg backbones (the seg trainer's SegNet, HRNetV2), BN
+folding, the converter and the registry.
 
 Counterpart of ``nbdt_tpu/models/__init__.py``: the registry is an explicit
 dict of constructors ``arch -> (num_classes, dtype, **kw) -> nn.Module``
@@ -19,6 +19,7 @@ from .efficientnet import *  # noqa: F401,F403 (EfficientNet and the b0..b8 x {,
 from .fold import fold_batchnorm
 from .layout import place_backbone
 from .segnet import SegNet
+from .hrnet import HRNetV2, hrnetv2_w48
 from .resnet import (
     BasicBlock,
     Bottleneck,

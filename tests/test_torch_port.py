@@ -227,6 +227,7 @@ def test_port_imports_nothing_of_jax():
         "import nbdt_torch.bin.nbdt, nbdt_torch.bin.original, nbdt_torch.bin.nbdt_export\n"
         "import nbdt_torch.parallel, nbdt_torch.profiling\n"
         "import nbdt_torch.native, nbdt_torch.data.segmentation, nbdt_torch.models.segnet\n"
+        "import nbdt_torch.models.hrnet\n"
         "import nbdt_torch.examples.train_seg\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
