@@ -2,8 +2,10 @@
 reference (``benchmark/reference/hrnet.py``) on the CPU: a tiny HRNetV2 on
 one seeded state dict at even and odd sizes, ``align_corners`` both ways;
 the W48 widths' parameter count and output shape on the meta device;
-``SoftSegNBDT`` over the tiny model on the vendored ADE20K tree; and the
-spans of the seg path under a ``torch.profiler`` session (host times)."""
+``SoftSegNBDT`` over the tiny model on the vendored ADE20K tree; the
+spans of the seg path under a ``torch.profiler`` session (host times), the
+``branches`` span's ``engines`` and ``new_shape``; and on a card, the
+branch blocks' timed cuDNN engines against the heuristic ones."""
 
 import math
 import sys
@@ -141,8 +143,8 @@ def test_soft_seg_nbdt_matches_the_reference_rows():
 def test_seg_path_spans():
     """The first call in ``first_call``; under a profiler each request's
     ``request`` span (images) holds ``backbone`` (one ``branches`` and one
-    ``fuse`` span a module, with its stage and index) and ``head``
-    (pixel rows)."""
+    ``fuse`` span a module, with its stage and index; ``branches`` with
+    the heuristic engines of the CPU) and ``head`` (pixel rows)."""
     import time
 
     from nbdt_torch import profiling
@@ -151,6 +153,7 @@ def test_seg_path_spans():
     port, _ = tiny_pair()
     seg = SoftSegNBDT("ADE20K", port, tree=ade20k_tree(), device="cpu")
     x = images(2, 32, 32).permute(0, 2, 3, 1)
+    branches = {"engines": "heuristic", "new_shape": False}
     t0 = time.time_ns()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         seg(x)
@@ -168,7 +171,90 @@ def test_seg_path_spans():
         assert head["attrs"]["rows"] == 2 * 8 * 8
         inner = [s for s in group if s["parent"] == backbone["id"]]
         assert [(s["name"], s["attrs"]) for s in inner] == [
-            (name, {"stage": stage, "module": 0})
+            (name, {"stage": stage, "module": 0, **(branches if name == "branches" else {})})
             for stage in (2, 3, 4) for name in ("branches", "fuse")]
         assert all(by_id[s["parent"]]["name"] == "backbone" for s in inner)
         assert all(s["device_ms"] is None for s in group)  # host times on the CPU
+
+
+def _branches_spans(call):
+    """``(engines, new_shape)`` of each ``branches`` span ``call`` records
+    under a profiler, in order."""
+    import time
+
+    from nbdt_torch import profiling
+
+    t0 = time.time_ns()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        call()
+    return [(s["attrs"]["engines"], s["attrs"]["new_shape"])
+            for s in profiling.spans(t0) if s["name"] == "branches"]
+
+
+def test_branches_span_marks_each_modules_first_timed_call_at_a_shape(monkeypatch):
+    """With the timing rule answering yes (patched, so the CPU stands for a
+    card): ``engines="timed"``, and ``new_shape`` on each module's first
+    call at an input shape alone, however many calls follow."""
+    from nbdt_torch.models import layout
+
+    monkeypatch.setattr(layout, "conv_memory_format", lambda *args: torch.contiguous_format)
+    port, _ = tiny_pair()
+    small, large = images(2, 32, 32), images(2, 48, 48)
+    with torch.no_grad():
+        assert _branches_spans(lambda: port(small)) == [("timed", True)] * 3
+        assert _branches_spans(lambda: port(small)) == [("timed", False)] * 3
+        port(large)  # outside a profiler: still counted
+        assert _branches_spans(lambda: (port(large), port(small))) == [("timed", False)] * 6
+    assert [len(m.timed_shapes) for m in port.modules() if hasattr(m, "timed_shapes")] == [2] * 3
+
+
+@pytest.mark.gpu
+def test_timed_branch_engines_on_gpu(monkeypatch):
+    """A small HRNetV2 with W48's widths through ``SoftSegNBDT`` in f32, TF32
+    off: the branch blocks' timed engines give the heuristic ones' per-pixel
+    class probabilities within the seg cell's ``prob_gap`` limit (the
+    heuristic path is the helper patched away, run at two images a call so
+    that cuDNN's plan cache, keyed by shape, holds its own plans); the first
+    call's ``branches`` spans read ``new_shape=True``, the second's
+    ``engines="timed"``, ``new_shape=False``; no TF32 or tensor-core
+    kernel runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import contextlib
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from nbdt_torch.model import SoftSegNBDT
+    from nbdt_torch.models import HRNetV2, hrnet
+
+    cell = json.loads((REPO / "benchmark/workloads/hrnetv2_w48_ade20k.offline.json").read_text())
+    limit = cell["limits"]["prob_gap"]
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        model = HRNetV2(150, widths=(48, 96, 192, 384), blocks=1, modules=(1, 1, 1)).eval()
+        model.load_state_dict(seeded_state(model, 5))
+        seg = SoftSegNBDT("ADE20K", model, tree=ade20k_tree())
+        x = torch.randn(4, 256, 256, 3, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(6))
+        first = _branches_spans(lambda: seg(x))
+        second = _branches_spans(lambda: seg(x))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = seg(x).as_subclass(torch.Tensor)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+
+        @contextlib.contextmanager
+        def heuristic(x):
+            yield False
+
+        monkeypatch.setattr(hrnet, "timed_conv_engines", heuristic)
+        heuristic_spans = _branches_spans(lambda: seg(x[:2]))
+        want = torch.cat([seg(part).as_subclass(torch.Tensor) for part in x.split(2)])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert first == [("timed", True)] * 3 and second == [("timed", False)] * 3
+    assert heuristic_spans == [("heuristic", False)] * 3
+    assert float((got - want).abs().max()) < limit
+    assert not [k for k in names if any(t in k.lower() for t in ("tf32", "s1688", "hmma", "wgmma"))]

@@ -5,8 +5,10 @@ channels-last outputs it always gave, bit for bit, with channels-last
 weights; the NCHW half of each entry, forced on the CPU, against the
 channels-last one; the ``backbone`` span's ``layout``; and on a card, an f32
 ResNet18 with TF32 off placed and fed in contiguous NCHW, with no layout
-transpose among its kernels."""
+transpose among its kernels. ``timed_conv_engines``: cuDNN's benchmark flag
+on under the same rule, every other flag kept inside and all restored."""
 
+import contextlib
 import copy
 
 import pytest
@@ -215,3 +217,78 @@ def test_f32_resnet18_serves_in_nchw_on_gpu():
         assert not [k for k in names if "nhwcToNchw" in k or "nchwToNhwc" in k], names
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _cudnn_flags():
+    """Every flag ``torch.backends.cudnn.flags`` takes, at its value now."""
+    import inspect
+
+    cudnn = torch.backends.cudnn
+    return {name: getattr(cudnn, name) for name in inspect.signature(cudnn.flags).parameters}
+
+
+def _input_on(device_type, dtype):
+    """What ``timed_conv_engines`` reads of its input, on any device."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(device=torch.device(device_type), dtype=dtype)
+
+
+@pytest.mark.parametrize("device_type, dtype, allow_tf32, timed", [
+    ("cuda", torch.float32, False, True),
+    ("cuda", torch.float32, True, False),
+    ("cuda", torch.bfloat16, False, False),
+    ("cuda", torch.float16, False, False),
+    ("cpu", torch.float32, False, False),
+    ("cpu", torch.float32, True, False),
+    ("cpu", torch.bfloat16, False, False),
+])
+def test_timed_conv_engines_follows_the_layout_rule(monkeypatch, device_type, dtype, allow_tf32,
+                                                    timed):
+    """cuDNN's benchmark flag is on inside the context only where the layout
+    rule gives NCHW (CUDA, f32, TF32 off); elsewhere nothing changes."""
+    from nbdt_torch.models.layout import timed_conv_engines
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", allow_tf32)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    before = _cudnn_flags()
+    with timed_conv_engines(_input_on(device_type, dtype)) as applies:
+        inside = _cudnn_flags()
+    assert applies == timed
+    assert inside == ({**before, "benchmark": True} if timed else before)
+
+
+@pytest.mark.parametrize("raises", [False, True], ids=["returns", "raises"])
+@pytest.mark.parametrize("applies", [False, True], ids=["heuristic", "timed"])
+def test_timed_conv_engines_restores_every_cudnn_flag(monkeypatch, applies, raises):
+    from nbdt_torch.models.layout import timed_conv_engines
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    before = _cudnn_flags()
+    x = _input_on("cuda" if applies else "cpu", torch.float32)
+    with pytest.raises(RuntimeError) if raises else contextlib.nullcontext():
+        with timed_conv_engines(x) as timed:
+            assert timed == applies
+            if raises:
+                raise RuntimeError("inside the context")
+    assert _cudnn_flags() == before
+
+
+@pytest.mark.parametrize("allow_tf32", [False, True])
+def test_timed_conv_engines_keeps_cudnn_and_tf32_as_they_are(monkeypatch, allow_tf32):
+    """Where it applies (the rule patched to answer NCHW, so a CPU tensor
+    stands for a CUDA one), only ``benchmark`` changes inside the context:
+    ``flags``' own defaults would turn cuDNN off and TF32 on."""
+    from nbdt_torch.models import layout
+
+    monkeypatch.setattr(layout, "conv_memory_format", lambda *args: NCHW)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", allow_tf32)
+    monkeypatch.setattr(torch.backends.cudnn, "enabled", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    with layout.timed_conv_engines(torch.zeros(1, 1, 2, 2)) as timed:
+        assert timed
+        assert torch.backends.cudnn.enabled
+        assert torch.backends.cudnn.allow_tf32 == allow_tf32
+        assert torch.backends.cudnn.benchmark
+    assert not torch.backends.cudnn.benchmark
