@@ -41,8 +41,7 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
               load_pretrained_nbdts.ipynb walkthrough, vis_demo, app (an
               HTTP classifier)
   tools/      verify_release (released-checkpoint parity), count_work,
-              the conv probe, the fused head's phase profiler, the conv
-              ablation
+              the conv probe
   scripts/    the reproduction pipelines (bash and PowerShell)
 
 The user guides are at the repository root: docs/torch/MIGRATION.md (from

@@ -26,8 +26,7 @@
 // and keep the tensor cores fed at the same time.
 //
 // Design: a persistent, warp-specialised implicit GEMM on wgmma, fed by TMA.
-// Its choices were measured on an H100 (PERF.md; python -m
-// nbdt_torch.tools.conv3x3_ablation times the alternatives).
+// Its choices were measured on an H100 (PERF.md).
 //  * One block per SM (the host plan, ops/conv3x3.py's plan_conv3x3, sizes
 //    the grid and the ring); each block walks output tiles t = blockIdx.x,
 //    + gridDim.x, ... A tile is one image, 4 output rows and 32 columns.

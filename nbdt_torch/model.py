@@ -29,7 +29,7 @@ import torch.nn as nn
 from .hierarchy.generate import CLASSIFIER_NAMES, get_classifier_from_module
 from .models.convert import pytorchcv_wrn_keys, state_dict_from_flax
 from .models.fold import fold_batchnorm
-from .models.layout import NCHW, place_backbone
+from .models.layout import place_backbone
 from .models.utils import cached_checkpoint, load_torch_checkpoint
 from .ops.soft_traversal import fused_soft_head, prepare_head_constants
 from .profiling import setup_span, span
@@ -198,19 +198,30 @@ class NBDT:
         return self._forward(x)
 
     def _forward(self, x):
-        layout = "nchw" if self._format == NCHW else "channels_last"
+        """One request: ``request`` (``rows``: images) > ``backbone``, then
+        ``head`` (``rows``: the rows the rules decide, one a pixel for the
+        segmentation wrappers)."""
         with span("request", self.device, rows=len(x)):
-            if self._head is not None:
-                with span("backbone", self.device, layout=layout):
-                    feats = self.model(self._input(x), features_only=True)
-                with span("head", self.device):
-                    (leaf_logp,) = fused_soft_head(feats, self._head, want_aux=False)
-                    # exp(leaf log-probs) == the rules' raw probability product
-                    return TaggedOutput(torch.exp(leaf_logp))
-            with span("backbone", self.device, layout=layout):
-                logits = self.model(self._input(x))
-            with span("head", self.device):
-                return self.rules(logits)
+            with span("backbone", self.device):
+                out = self._backbone(x)
+            with span("head", self.device, rows=out.shape[:-1].numel()):
+                return self._decide(out)
+
+    def _backbone(self, x) -> torch.Tensor:
+        """NHWC images -> the head's input: pooled features for the fused
+        head, logits otherwise."""
+        if self._head is not None:
+            return self.model(self._input(x), features_only=True)
+        return self.model(self._input(x))
+
+    def _decide(self, out: torch.Tensor):
+        """The backbone's output -> the rules' output (the fused head's leaf
+        probabilities where there is one)."""
+        if self._head is not None:
+            (leaf_logp,) = fused_soft_head(out, self._head, want_aux=False)
+            # exp(leaf log-probs) == the rules' raw probability product
+            return TaggedOutput(torch.exp(leaf_logp))
+        return self.rules(out)
 
     __call__ = forward
 
@@ -237,17 +248,14 @@ class SegNBDT(NBDT):
     ``NBDT.forward``: the ``request`` span (``rows``: images) holds
     ``backbone`` and ``head`` (``rows``: pixels)."""
 
-    def _forward(self, x):
+    def _backbone(self, x) -> torch.Tensor:
         x = torch.as_tensor(x, device=self.device)
         if x.ndim != 4:
             raise ValueError(f"Input must be (N, H, W, C) for segmentation, not {tuple(x.shape)}")
-        layout = "nchw" if self._format == NCHW else "channels_last"
-        with span("request", self.device, rows=len(x)):
-            with span("backbone", self.device, layout=layout):
-                maps = self.model(self._input(x)).permute(0, 2, 3, 1)
-            n, h, w, _ = maps.shape
-            with span("head", self.device, rows=n * h * w):
-                return TaggedOutput(uncoerce_tensor(self.rules(coerce_tensor(maps)), maps.shape))
+        return self.model(self._input(x)).permute(0, 2, 3, 1)
+
+    def _decide(self, maps: torch.Tensor):
+        return TaggedOutput(uncoerce_tensor(self.rules(coerce_tensor(maps)), maps.shape))
 
 
 class HardSegNBDT(SegNBDT):

@@ -31,10 +31,7 @@ a ``branches`` span and its exchange unit in a ``fuse`` span, both with the
 attributes ``stage`` and ``module`` (recorded only under a profiler). The
 blocks run inside ``layout.timed_conv_engines``: where the layout rule gives
 NCHW (CUDA, f32, TF32 off) cuDNN times its engines for their convolutions
-instead of picking by heuristic, which chose a slow FFT at these shapes;
-the ``branches`` span says which (``engines``: ``"timed"`` or
-``"heuristic"``) and ``new_shape`` is true on the call in which the module
-first met its input shape under timing.
+instead of picking by heuristic, which chose a slow FFT at these shapes.
 """
 
 from __future__ import annotations
@@ -98,18 +95,11 @@ class HRModule(nn.Module):
         self.fuse_layers = nn.ModuleList(
             nn.ModuleList(_link(widths, i, j) for j in range(len(widths)))
             for i in range(len(widths)))
-        self.timed_shapes = set()  # the input shapes its blocks have run at under timing
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         attrs = {"stage": self.stage, "module": self.index}
-        with timed_conv_engines(xs[0]) as timed:
-            shape = tuple(xs[0].shape)
-            new_shape = timed and shape not in self.timed_shapes
-            if new_shape:
-                self.timed_shapes.add(shape)
-            with span("branches", xs[0].device, **attrs,
-                      engines="timed" if timed else "heuristic", new_shape=new_shape):
-                xs = [branch(x) for branch, x in zip(self.branches, xs)]
+        with timed_conv_engines(xs[0]), span("branches", xs[0].device, **attrs):
+            xs = [branch(x) for branch, x in zip(self.branches, xs)]
         with span("fuse", xs[0].device, **attrs):
             return [self._fused(xs, i) for i in range(len(xs))]
 

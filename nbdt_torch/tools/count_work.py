@@ -9,12 +9,14 @@ a measured time.
 Prints one JSON line: the FLOPs of the forward (``torch.utils.flop_counter``),
 the convolutions' FLOPs split into dense and grouped (depthwise) ones, and
 the bytes each aten op reads and writes, counting each of its input and
-output tensors once, in the module's dtype, channels-last as the NBDT
-wrappers run it. With ``--head DATASET``, also the work of the fused head
-(B1) on that dataset's induced tree at the backbone's feature width,
-f32 W: its bytes, classifier FLOPs and tree operations, and the least time
-an H100 could take for them at its published peaks (``head_bound_ms``,
-which ``chip_smoke.py`` uses too).
+output tensors once, in the module's dtype. The module runs channels-last
+here, where the NBDT wrappers place an f32 backbone on CUDA with TF32 off
+in contiguous NCHW (``models/layout.py``); no count depends on the layout,
+since an op reads and writes the same bytes in either. With ``--head
+DATASET``, also the work of the fused head (B1) on that dataset's induced
+tree at the backbone's feature width, f32 W: its bytes, classifier FLOPs
+and tree operations, and the least time an H100 could take for them at its
+published peaks (``head_bound_ms``, which ``chip_smoke.py`` uses too).
 """
 
 from __future__ import annotations

@@ -43,14 +43,11 @@ import torch.nn.functional as F
 
 from ..ops import conv3x3
 from ..utils import resolve_device
+from .count_work import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S
 
 H = W = 32
 C = conv3x3.C
 DRAW_CHUNK = 256  # images per numpy draw: the same stream as one draw, less host memory
-# Published H100 SXM peaks at a 700 W power limit: bf16 tensor-core FLOP/s
-# and HBM bytes/s.
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
 
 
 @dataclass

@@ -119,25 +119,3 @@ def test_plain_walk_of_the_plan_matches_the_plain_version(shape):
     got = _walk(x, w, b, plan)
     assert not torch.isnan(got.float()).any()
     torch.testing.assert_close(got, conv.conv3x3_bias_relu_reference(x, w, b))
-
-
-def test_ablation_variants_build_from_the_kernel_source():
-    """Every variant of ``python -m nbdt_torch.tools.conv3x3_ablation`` finds
-    the text it edits in ``csrc/conv3x3.cu``, and the wgmma it generates for
-    another N has the kernel's own instruction template."""
-    import re
-
-    from nbdt_torch.ops import _build
-    from nbdt_torch.tools import conv3x3_ablation as ab
-
-    kernel = (_build.CSRC / "conv3x3.cu").read_text()
-    sources = {name: ab.variant_source(name) for name in ab.VARIANTS}
-    assert sources["kernel"] == kernel
-    assert len(set(sources.values())) == len(sources)
-
-    def template(src, n):
-        body = src[src.index(f"void wgmma_m64n{n}k16("):]
-        return "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', body[:body.index(': "+f"')]))
-
-    assert template(ab._wgmma_source(136), 136) == template(kernel, 136)
-    assert "m64n160k16" in template(sources["pitch40"], 160)

@@ -3,10 +3,12 @@ reference (``benchmark/reference/hrnet.py``) on the CPU: a tiny HRNetV2 on
 one seeded state dict at even and odd sizes, ``align_corners`` both ways;
 the W48 widths' parameter count and output shape on the meta device;
 ``SoftSegNBDT`` over the tiny model on the vendored ADE20K tree; the
-spans of the seg path under a ``torch.profiler`` session (host times), the
-``branches`` span's ``engines`` and ``new_shape``; and on a card, the
-branch blocks' timed cuDNN engines against the heuristic ones."""
+spans of the seg path under a ``torch.profiler`` session (host times);
+which layers run with cuDNN's benchmark flag; that calls keep no state in
+the model; and on a card, the branch blocks' timed cuDNN engines against
+the heuristic ones."""
 
+import copy
 import math
 import sys
 from pathlib import Path
@@ -143,8 +145,8 @@ def test_soft_seg_nbdt_matches_the_reference_rows():
 def test_seg_path_spans():
     """The first call in ``first_call``; under a profiler each request's
     ``request`` span (images) holds ``backbone`` (one ``branches`` and one
-    ``fuse`` span a module, with its stage and index; ``branches`` with
-    the heuristic engines of the CPU) and ``head`` (pixel rows)."""
+    ``fuse`` span a module, with its stage and index) and ``head`` (pixel
+    rows)."""
     import time
 
     from nbdt_torch import profiling
@@ -153,7 +155,6 @@ def test_seg_path_spans():
     port, _ = tiny_pair()
     seg = SoftSegNBDT("ADE20K", port, tree=ade20k_tree(), device="cpu")
     x = images(2, 32, 32).permute(0, 2, 3, 1)
-    branches = {"engines": "heuristic", "new_shape": False}
     t0 = time.time_ns()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         seg(x)
@@ -171,41 +172,68 @@ def test_seg_path_spans():
         assert head["attrs"]["rows"] == 2 * 8 * 8
         inner = [s for s in group if s["parent"] == backbone["id"]]
         assert [(s["name"], s["attrs"]) for s in inner] == [
-            (name, {"stage": stage, "module": 0, **(branches if name == "branches" else {})})
+            (name, {"stage": stage, "module": 0})
             for stage in (2, 3, 4) for name in ("branches", "fuse")]
         assert all(by_id[s["parent"]]["name"] == "backbone" for s in inner)
         assert all(s["device_ms"] is None for s in group)  # host times on the CPU
 
 
-def _branches_spans(call):
-    """``(engines, new_shape)`` of each ``branches`` span ``call`` records
-    under a profiler, in order."""
-    import time
+@pytest.mark.parametrize("rule", ["nchw", "as_is"])
+def test_branch_blocks_run_with_timed_engines_where_the_rule_says(monkeypatch, rule):
+    """Forward pre-hooks read cuDNN's benchmark flag as each layer starts:
+    on in every branch ``BasicBlock`` where the layout rule gives NCHW (here
+    patched, so the CPU stands for a card), off where it does not (the CPU
+    as it is), and at the caller's value (off) in the stem, stage 1, the
+    transitions, the exchange units and the head; restored afterwards."""
+    from nbdt_torch.models import layout
+    from nbdt_torch.models.resnet import BasicBlock
 
-    from nbdt_torch import profiling
+    if rule == "nchw":
+        monkeypatch.setattr(layout, "conv_memory_format", lambda *args: torch.contiguous_format)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    port, _ = tiny_pair()
+    seen = {}
+    for name, module in port.named_modules():
+        module.register_forward_pre_hook(
+            lambda m, args, name=name: seen.setdefault(name, []).append(
+                torch.backends.cudnn.benchmark))
+    with torch.no_grad():
+        port(images(2, 32, 32))
+    assert not torch.backends.cudnn.benchmark
+    blocks = {name for name, m in port.named_modules()
+              if isinstance(m, BasicBlock) and ".branches." in name}
+    assert len(blocks) == 9 and blocks <= set(seen)
+    for prefix in ("conv1", "layer1.0.conv1", "transition1.0.0", "transition3.3.0.0",
+                   "stage2.0.fuse_layers.0.1", "stage4.0.fuse_layers.3.0.2.0", "last_layer.0"):
+        assert prefix in seen, prefix
+    for name, flags in seen.items():
+        timed = rule == "nchw" and ".branches." in name
+        assert flags == [timed], name
 
-    t0 = time.time_ns()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        call()
-    return [(s["attrs"]["engines"], s["attrs"]["new_shape"])
-            for s in profiling.spans(t0) if s["name"] == "branches"]
 
-
-def test_branches_span_marks_each_modules_first_timed_call_at_a_shape(monkeypatch):
+def test_hrnet_keeps_no_state_between_calls(monkeypatch):
     """With the timing rule answering yes (patched, so the CPU stands for a
-    card): ``engines="timed"``, and ``new_shape`` on each module's first
-    call at an input shape alone, however many calls follow."""
+    card), calls at three input shapes leave every module's attributes (their
+    names, and the values of the public ones) and the state dict as they
+    were."""
     from nbdt_torch.models import layout
 
     monkeypatch.setattr(layout, "conv_memory_format", lambda *args: torch.contiguous_format)
     port, _ = tiny_pair()
-    small, large = images(2, 32, 32), images(2, 48, 48)
+
+    def attributes():
+        return {name: (sorted(vars(m)), copy.deepcopy(
+            {k: v for k, v in vars(m).items() if not k.startswith("_")}))
+            for name, m in port.named_modules()}
+
+    before, state = attributes(), copy.deepcopy(port.state_dict())
     with torch.no_grad():
-        assert _branches_spans(lambda: port(small)) == [("timed", True)] * 3
-        assert _branches_spans(lambda: port(small)) == [("timed", False)] * 3
-        port(large)  # outside a profiler: still counted
-        assert _branches_spans(lambda: (port(large), port(small))) == [("timed", False)] * 6
-    assert [len(m.timed_shapes) for m in port.modules() if hasattr(m, "timed_shapes")] == [2] * 3
+        for size in ((32, 32), (48, 48), (45, 37)):
+            port(images(2, *size))
+    assert attributes() == before
+    after = port.state_dict()
+    assert list(after) == list(state)
+    assert all(torch.equal(after[k], v) for k, v in state.items())
 
 
 @pytest.mark.gpu
@@ -214,10 +242,8 @@ def test_timed_branch_engines_on_gpu(monkeypatch):
     off: the branch blocks' timed engines give the heuristic ones' per-pixel
     class probabilities within the seg cell's ``prob_gap`` limit (the
     heuristic path is the helper patched away, run at two images a call so
-    that cuDNN's plan cache, keyed by shape, holds its own plans); the first
-    call's ``branches`` spans read ``new_shape=True``, the second's
-    ``engines="timed"``, ``new_shape=False``; no TF32 or tensor-core
-    kernel runs."""
+    that cuDNN's plan cache, keyed by shape, holds its own plans); no TF32
+    or tensor-core kernel runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import contextlib
@@ -238,8 +264,7 @@ def test_timed_branch_engines_on_gpu(monkeypatch):
         seg = SoftSegNBDT("ADE20K", model, tree=ade20k_tree())
         x = torch.randn(4, 256, 256, 3, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(6))
-        first = _branches_spans(lambda: seg(x))
-        second = _branches_spans(lambda: seg(x))
+        seg(x)  # the first call at these shapes times the engines
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             got = seg(x).as_subclass(torch.Tensor)
             torch.cuda.synchronize()
@@ -250,11 +275,8 @@ def test_timed_branch_engines_on_gpu(monkeypatch):
             yield False
 
         monkeypatch.setattr(hrnet, "timed_conv_engines", heuristic)
-        heuristic_spans = _branches_spans(lambda: seg(x[:2]))
         want = torch.cat([seg(part).as_subclass(torch.Tensor) for part in x.split(2)])
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-    assert first == [("timed", True)] * 3 and second == [("timed", False)] * 3
-    assert heuristic_spans == [("heuristic", False)] * 3
     assert float((got - want).abs().max()) < limit
     assert not [k for k in names if any(t in k.lower() for t in ("tf32", "s1688", "hmma", "wgmma"))]

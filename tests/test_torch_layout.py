@@ -3,9 +3,9 @@
 type, conv dtype and cuDNN's TF32 switch; on the CPU every entry gives the
 channels-last outputs it always gave, bit for bit, with channels-last
 weights; the NCHW half of each entry, forced on the CPU, against the
-channels-last one; the ``backbone`` span's ``layout``; and on a card, an f32
-ResNet18 with TF32 off placed and fed in contiguous NCHW, with no layout
-transpose among its kernels. ``timed_conv_engines``: cuDNN's benchmark flag
+channels-last one; the backbone's input in the placed format through each
+wrapper; and on a card, an f32 ResNet18 with TF32 off placed and fed in
+contiguous NCHW, with no layout transpose among its kernels. ``timed_conv_engines``: cuDNN's benchmark flag
 on under the same rule, every other flag kept inside and all restored."""
 
 import contextlib
@@ -157,20 +157,31 @@ def test_entry_in_nchw_matches_channels_last(parts, monkeypatch, name):
 
 
 @pytest.mark.parametrize("nchw", [False, True], ids=["channels_last", "nchw"])
-def test_backbone_span_records_the_layout(monkeypatch, nchw):
-    from nbdt_torch import SoftNBDT, profiling
-    from nbdt_torch.models import ResNet10, layout
+def test_backbone_gets_its_input_in_the_placed_format(parts, monkeypatch, nchw):
+    """``SoftNBDT`` fused and plain and ``SoftSegNBDT`` call their backbone
+    with its input in the format ``place_backbone`` gave the wrapper
+    (``_format``), and not in the other: channels-last as the CPU is, NCHW
+    with the rule patched to answer it."""
+    from nbdt_torch import SoftNBDT
+    from nbdt_torch.model import SoftSegNBDT
+    from nbdt_torch.models import layout
 
+    want, other = (NCHW, CL) if nchw else (CL, NCHW)
     if nchw:
         monkeypatch.setattr(layout, "conv_memory_format", lambda *args: NCHW)
-    monkeypatch.setattr(profiling, "_BUFFER", profiling.SpanBuffer())
-    net = SoftNBDT("CIFAR10", ResNet10(10), tree=grouped_tree(10, 3), fused=True, device="cpu")
-    x = torch.randn(3, IMG, IMG, 3)
-    net(x)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        net(x)
-    (back,) = [s for s in profiling.spans() if s["name"] == "backbone"]
-    assert back["attrs"] == {"layout": "nchw" if nchw else "channels_last"}
+    tree = parts["tree"]
+    wrappers = [
+        SoftNBDT("CIFAR10", copy.deepcopy(parts["resnet"]), tree=tree, fused=True, device="cpu"),
+        SoftNBDT("CIFAR10", copy.deepcopy(parts["resnet"]), tree=tree, device="cpu"),
+        SoftSegNBDT(None, copy.deepcopy(parts["segnet"]), tree=tree, device="cpu"),
+    ]
+    for net in wrappers:
+        assert net._format == want
+        seen = _inputs_seen(net.model)
+        with torch.no_grad():
+            net(parts["x"])
+        (x,) = seen
+        assert x.is_contiguous(memory_format=want) and not x.is_contiguous(memory_format=other)
 
 
 @pytest.mark.gpu

@@ -236,7 +236,8 @@ def test_nbdt_forward_records_request_backbone_head(buffer, fused):
     assert [s["name"] for s in got] == ["request", "backbone", "head"] * 2
     for k in (0, 3):
         req, back, head = got[k:k + 3]
-        assert req["attrs"] == {"rows": 3} and back["attrs"] == {"layout": "channels_last"}
+        assert req["attrs"] == {"rows": 3} and back["attrs"] == {}
+        assert head["attrs"] == {"rows": 3}
         assert back["parent"] == head["parent"] == req["id"]
         assert back["group"] == head["group"] == req["group"] == req["id"]
         assert req["start_ns"] <= back["start_ns"] <= back["end_ns"] <= head["start_ns"] \

@@ -249,18 +249,6 @@ def test_plan_walk_reproduces_the_plain_version(name, one_thread):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
 
-def test_phase_profiler_finds_every_phase_in_the_kernel_source():
-    """``python -m nbdt_torch.tools.soft_head_phases`` stamps the kernel at
-    fixed places in its source; each must be there exactly once."""
-    from nbdt_torch.tools import soft_head_phases as phases
-
-    src = phases.instrumented_source()
-    assert src.count("g_stamp[blockIdx.x") == len(phases.ANCHORS)
-    for instance, names in phases.PHASES.items():
-        stamps = [k for inst, k, _, _ in phases.ANCHORS if inst == instance]
-        assert stamps == list(range(len(names) + 1))
-
-
 # The widths of the heads the trees meet: ResNet18/34 and ViT-S (512), WRN-28-10
 # (640), ViT-B (768), DenseNet/ResNet variants (1024), EfficientNet (1280-2560),
 # ResNet50-152 (2048), AlexNet and VGG's classic head (4096).
