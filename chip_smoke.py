@@ -76,8 +76,8 @@ when there is no CUDA device or any check fails. The last line is
 record.
 
 Phases: device, build, the conv probe's inputs, kernel vs plain (soft_head,
-layernorm, conv3x3), ResNet18 main path, its serving fn, ViT-B/16 main path,
-its f32 gate, its serving fn, the conv probe path (one request, then the
+layernorm, conv3x3, bn_act), ResNet18 main path, its serving fn, ViT-B/16
+main path, its f32 gate, its serving fn, the conv probe path (one request, then the
 probe's parity and timing phases), the training path, the WRN-28-10 serving
 and training path, the zero-shot path, the ImageNet path, the zoo path, the
 export path, the parallel path, the segmentation path, the ImageNet
@@ -120,7 +120,9 @@ from nbdt_torch.hierarchy.digraph import Digraph
 from nbdt_torch.hierarchy.generate import find_classifier
 from nbdt_torch.main import main as train_cli
 from nbdt_torch.models import ResNet18, SegNet, vit_b16, wrn28_10_cifar10, wrn28_10_cifar100
+from nbdt_torch.models import resnet as resnet_module
 from nbdt_torch.ops import _build
+from nbdt_torch.ops import bn_act as ba
 from nbdt_torch.ops import conv3x3 as conv
 from nbdt_torch.ops import layernorm as ln
 from nbdt_torch.ops import soft_traversal as st
@@ -139,6 +141,7 @@ VIT_IMG = 224
 VIT_DIM = 768
 VIT_CLASSES = 1000
 VIT_LN_PER_REQUEST = 25  # 2 per block x 12 blocks + the final LayerNorm
+BN_ACT_PER_REQUEST = 17  # ResNet18 in f32: the stem, 2 per BasicBlock x 8
 PROBE_PARITY_BATCH = 64  # tools/probe_pallas_conv.py's --parity-batch
 REQUESTS = 3
 TIMED = 20
@@ -221,6 +224,7 @@ EFF_DIM = 2560
 R50_BATCH = 256
 R50_IMG = 224
 R50_DIM = 2048
+R50_BN_ACT_PER_REQUEST = 49  # the stem, 3 per Bottleneck x 16
 IMNET_CLASSES = 1000
 IMNET_TIMED = 3
 IMNET_CAL = 16
@@ -562,11 +566,41 @@ def check(ok: bool, msg: str) -> None:
 
 
 def reset_launches() -> None:
-    st.launches = ln.launches = conv.launches = 0
+    st.launches = ln.launches = conv.launches = ba.launches = 0
 
 
 def read_launches() -> dict:
-    return {"soft_head": st.launches, "layernorm": ln.launches, "conv3x3": conv.launches}
+    return {"soft_head": st.launches, "layernorm": ln.launches, "conv3x3": conv.launches,
+            "bn_act": ba.launches}
+
+
+@contextlib.contextmanager
+def library_passes():
+    """The ResNet blocks' BatchNorm, residual add and ReLU as the library's
+    passes (``bn_act_rule`` off) inside the block, whatever the call."""
+    rule = resnet_module.bn_act_rule
+    resnet_module.bn_act_rule = lambda *args: False
+    try:
+        yield
+    finally:
+        resnet_module.bn_act_rule = rule
+
+
+class OnLibraryPasses:
+    """An NBDT wrapper whose calls run under :func:`library_passes`: the
+    plain side of a fused-vs-plain check, and its time, held to library
+    code alone."""
+
+    def __init__(self, nbdt):
+        self.nbdt = nbdt
+
+    def __call__(self, x):
+        with library_passes():
+            return self.nbdt(x)
+
+    def forward_with_decisions(self, x):
+        with library_passes():
+            return self.nbdt.forward_with_decisions(x)
 
 
 def synthetic_tree() -> Tree:
@@ -938,6 +972,40 @@ def check_layernorm_kernel() -> dict:
     return errs
 
 
+# The shapes bn_act takes on the main paths: ResNet18's first and last stages
+# at 8192 images, HRNetV2-W48's four branches at 32
+BN_ACT_CHECK_SHAPES = ((BATCH, 64, 32, 32), (BATCH, 512, 4, 4), (32, 48, 130, 130),
+                       (32, 96, 65, 65), (32, 192, 33, 33), (32, 384, 17, 17))
+
+
+def check_bn_act_kernel() -> int:
+    """bn_act vs its plain version, bit for bit, at BN_ACT_CHECK_SHAPES in
+    each variant: no residual (a block's first conv), the block's input,
+    and the shortcut conv's output through its own BatchNorm. Returns the
+    number of cases."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    cases = 0
+    for shape in BN_ACT_CHECK_SHAPES:
+        bn, rbn = seeded_bn(shape[1], g), seeded_bn(shape[1], g)
+        x = 3 * torch.randn(shape, device="cuda", generator=g) + 0.5
+        r = 2 * torch.randn(shape, device="cuda", generator=g)
+        for variant, residual, shortcut_bn in (("none", None, None), ("residual", r, None),
+                                               ("residual+bn", r, rbn)):
+            with torch.no_grad():
+                want = ba.bn_act_reference(x, bn, residual, shortcut_bn)
+                got = ba.fused_bn_act(x.clone(), bn, residual, shortcut_bn)
+            torch.cuda.synchronize()
+            case = f"bn_act {list(shape)} {variant}"
+            differ = int((got != want).sum())
+            check(torch.equal(got, want), f"{case}: {differ} elements differ from the plain "
+                  f"version, max-abs {float((got - want).abs().max()):.3g}")
+            print(f"[kernel] {case}: equal to its plain version bit for bit", flush=True)
+            cases += 1
+            del got, want
+        del x, r
+    return cases
+
+
 def check_conv3x3_kernel(inp: probe.ProbeInputs) -> float:
     """B3 vs its plain version with the probe's weight and bias: the probe's
     parity batch (64 x 32 x 32), N=3 and N=1 at 32x32, an odd map (N=5 at
@@ -991,7 +1059,7 @@ def run_conv_probe_path(inp: probe.ProbeInputs) -> dict:
     y = probe.request(inp)
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 1},
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 1, "bn_act": 0},
           f"conv probe request launches {launches}, expected one conv3x3")
     check(y.shape == inp.x.shape and bool(torch.isfinite(y).all()),
           f"conv probe request: bad output {tuple(y.shape)}")
@@ -1030,13 +1098,15 @@ def seeded_resnet18(cgen: torch.Generator) -> torch.nn.Module:
 
 
 def run_resnet_path(trees: dict) -> dict:
-    """ResNet18 main path (3 requests of 8192 through SoftNBDT(fused=True))
-    and its serving fn. Returns the launches and the request times."""
+    """ResNet18 main path (3 requests of 8192 through SoftNBDT(fused=True):
+    B1 and 17 bn_act passes each) against the plain rules over the library's
+    BatchNorm, add and ReLU, and its serving fn. Returns the launches and
+    the request times."""
     tree = trees["CIFAR10"]
     cgen = torch.Generator(device="cuda").manual_seed(1)
     model = seeded_resnet18(cgen)
     fused = SoftNBDT("CIFAR10", model, tree=tree, fused=True)
-    plain = SoftNBDT("CIFAR10", model, tree=tree)
+    plain = OnLibraryPasses(SoftNBDT("CIFAR10", model, tree=tree))
     requests = [torch.randn(BATCH, 32, 32, 3, device="cuda", generator=cgen)
                 for _ in range(REQUESTS)]
     torch.cuda.synchronize()
@@ -1044,10 +1114,13 @@ def run_resnet_path(trees: dict) -> dict:
     outs = [fused(x) for x in requests]
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0,
+                       "bn_act": BN_ACT_PER_REQUEST * REQUESTS},
           f"ResNet18 path launches {launches} over {REQUESTS} requests")
+    reset_launches()
     for i, (x, out) in enumerate(zip(requests, outs)):
         ref = plain(x)
+        check(read_launches()["bn_act"] == 0, f"request {i}: the plain side ran bn_act")
         check(out.shape == (BATCH, 10) and bool(torch.isfinite(out).all()),
               f"request {i}: bad output {tuple(out.shape)}")
         sums = out.sum(1)
@@ -1108,7 +1181,8 @@ def run_vit_path(tree: Tree) -> dict:
     outs = [fused(x) for x in requests]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"soft_head": REQUESTS, "layernorm": VIT_LN_PER_REQUEST * REQUESTS, "conv3x3": 0}
+    want = {"soft_head": REQUESTS, "layernorm": VIT_LN_PER_REQUEST * REQUESTS, "conv3x3": 0,
+            "bn_act": 0}
     check(launches == want, f"ViT path launches {launches} over {REQUESTS} requests, "
                             f"expected {want}")
     for i, out in enumerate(outs):
@@ -1390,7 +1464,7 @@ def run_training_path(workdir: Path) -> dict:
     n_products = check_tree_matmul_precision(tr1.model, xn, yb, tr1.jt)
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"training path launched kernels: {launches}")
     print(f"[train] tree-loss products at \"highest\" under \"medium\", forward and backward: "
           f"{n_products}; kernel launches over the training path: {json.dumps(launches)}",
@@ -1425,7 +1499,7 @@ def run_wrn_serving(tree: Tree) -> dict:
     outs = [fused(x) for x in requests]
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"WRN-28-10 path launches {launches} over {REQUESTS} requests")
     for i, (x, out) in enumerate(zip(requests, outs)):
         ref = plain(x)
@@ -1601,7 +1675,7 @@ def run_wrn_training(tree: Tree, workdir: Path) -> dict:
 
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"WRN training and eval path launched kernels: {launches}")
     print(f"[wrn train] tree-loss products at \"highest\": {n_products}; kernel launches over "
           f"the WRN training and eval path: {json.dumps(launches)}", flush=True)
@@ -1784,7 +1858,7 @@ def run_zero_shot_path(workdir: Path) -> dict:
     # Z4. No kernel ran
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"zero-shot path launched kernels: {launches}")
     print(f"[zero-shot] Z4 kernel launches over Z1-Z3: {json.dumps(launches)}", flush=True)
     shutil.rmtree(workdir, ignore_errors=True)
@@ -1874,10 +1948,12 @@ def imagenet_model(ctor, img: int, seed: int, sd_floor: float = 0.0):
 
 
 def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
-                   seed: int, tag: str = "[imagenet]") -> dict:
+                   seed: int, tag: str = "[imagenet]", bn_act_per_request: int = 0) -> dict:
     """One ImageNet backbone's main path: REQUESTS requests of ``batch``
-    normalized NHWC f32 images through SoftNBDT(fused=True) (one B1 launch each, counts
-    set to 0 just before) against the plain rules, B1 held to its plain
+    normalized NHWC f32 images through SoftNBDT(fused=True) (one B1 launch
+    and ``bn_act_per_request`` bn_act passes each, counts set to 0 just
+    before) against the plain rules over the library's BatchNorm, add and
+    ReLU, B1 held to its plain
     version on the path's own features (no less exact than it against f64,
     within TOL; argmax 1.0 on rows whose top-2 gap exceeds TOL), a decision
     path, a profiler line and the request times. Returns the record (with
@@ -1885,14 +1961,15 @@ def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
     for the serving fn and B1's timing."""
     cgen = torch.Generator(device="cuda").manual_seed(seed)
     fused = SoftNBDT("Imagenet1000", model, tree=tree, fused=True)
-    plain = SoftNBDT("Imagenet1000", model, tree=tree)
+    plain = OnLibraryPasses(SoftNBDT("Imagenet1000", model, tree=tree))
     requests = [imagenet_normalize(imagenet_images(batch, img, cgen)) for _ in range(REQUESTS)]
     torch.cuda.synchronize()
     reset_launches()
     outs = [fused(x) for x in requests]
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0,
+                       "bn_act": bn_act_per_request * REQUESTS},
           f"{name} path launches {launches} over {REQUESTS} requests")
     predicted = min(int(out.argmax(1).unique().numel()) for out in outs)
     for i, (x, out) in enumerate(zip(requests, outs)):
@@ -1999,7 +2076,7 @@ def check_cli_eval(arch: str, hierarchy: str, tree: Tree, workdir: Path, tag: st
     check((correct, total) == (hits, len(labels)) and total == 2 * IMNET_CLI_BATCH,
           f"CLI {arch}: NBDT-Soft {correct}/{total}, the plain rules on the same "
           f"logits {hits}/{len(labels)}")
-    check(cli_launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(cli_launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"CLI {arch} eval launched kernels: {cli_launches}")
     rec = {"arch": arch, "image": 224, "batch": IMNET_CLI_BATCH, "backbone_acc": acc,
            "nbdt_soft_correct": correct, "total": total, "launches": cli_launches,
@@ -2028,12 +2105,15 @@ def run_imagenet_path(trees: dict, workdir: Path) -> dict:
     from nbdt_torch.models import efficientnet_b7b, resnet50
 
     out, heads = {}, {}
-    for name, ctor, tree, batch, img, dim, seed in (
-            ("efficientnet_b7b", efficientnet_b7b, trees["b7b"], EFF_BATCH, EFF_IMG, EFF_DIM, 70),
-            ("resnet50", resnet50, trees["resnet"], R50_BATCH, R50_IMG, R50_DIM, 80)):
+    for name, ctor, tree, batch, img, dim, seed, passes in (
+            ("efficientnet_b7b", efficientnet_b7b, trees["b7b"], EFF_BATCH, EFF_IMG, EFF_DIM, 70,
+             0),
+            ("resnet50", resnet50, trees["resnet"], R50_BATCH, R50_IMG, R50_DIM, 80,
+             R50_BN_ACT_PER_REQUEST)):
         t0 = time.perf_counter()
         model = imagenet_model(ctor, img, seed)
-        rec, fused, plain, feats = serve_imagenet(name, model, tree, batch, img, dim, seed + 3)
+        rec, fused, plain, feats = serve_imagenet(name, model, tree, batch, img, dim, seed + 3,
+                                                  bn_act_per_request=passes)
         fold = name == "resnet50"
         srv, u8, ref, top = serve_bf16(name, model, tree, plain, batch, img, seed + 4, fold,
                                        "[imagenet serving]")
@@ -2125,7 +2205,7 @@ def run_squeezenet(tree: Tree) -> dict:
     outs = [plain(x) for x in requests]
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"{name} plain path launched kernels: {launches}")
     for i, o in enumerate(outs):
         check(o.shape == (ZOO_BATCH, IMNET_CLASSES) and bool(torch.isfinite(o).all()),
@@ -2509,7 +2589,7 @@ def run_export_path(workdir: Path) -> dict:
     out["launches"] = read_launches()
     print(f"[export] kernel launches over the export path: {json.dumps(out['launches'])}",
           flush=True)
-    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"export path launches {out['launches']}")
     del wrn
     torch.cuda.empty_cache()
@@ -2871,7 +2951,7 @@ def run_parallel_path(workdir: Path) -> dict:
     out["launches"] = read_launches()
     print(f"[parallel] kernel launches over the parallel path: {json.dumps(out['launches'])}",
           flush=True)
-    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"parallel path launches {out['launches']}")
     dist.destroy_process_group()
     shutil.rmtree(workdir, ignore_errors=True)
@@ -2915,7 +2995,7 @@ def serve_seg(dataset: str, hierarchy: str, batch: int, h: int, w: int, seed: in
         torch.cuda.synchronize()
         peak[name] = torch.cuda.max_memory_allocated()
     launches = read_launches()
-    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"[seg] {dataset} launched kernels: {launches}")
     s, hd = outs["soft"], outs["hard"]
     check(s.shape == hd.shape == (batch, h, w, C) and bool(torch.isfinite(s).all()),
@@ -3092,7 +3172,7 @@ def run_seg_path() -> dict:
     training = run_seg_training()
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"segmentation path launched kernels: {launches}")
     print(f"[seg] kernel launches over the segmentation path: {json.dumps(launches)}",
           flush=True)
@@ -3289,7 +3369,7 @@ def run_imagenet_training(workdir: Path) -> dict:
     out["launches"] = read_launches()
     print(f"[imagenet train] kernel launches over the two configs' runs: "
           f"{json.dumps(out['launches'])}", flush=True)
-    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"imagenet training path launches {out['launches']}")
 
     # the tree products of the trained resnet18, forward and backward
@@ -3463,7 +3543,9 @@ def run_convert_and_examples(workdir: Path) -> dict:
     torch on a seeded resnet18, bit for bit, with neither flax nor msgpack
     installed; ``load_pretrained`` on a seeded checkpoint and PNG on the
     card (and on the CPU); the HTTP app on a free port of localhost, one
-    POST of that PNG; ``vis_demo``'s two pages. No kernel launches."""
+    POST of that PNG; ``vis_demo``'s two pages. In this process, no launch
+    but ``load_pretrained``'s one f32 ResNet18 forward on the card (17
+    bn_act passes)."""
     import importlib.util
     import urllib.request
 
@@ -3557,7 +3639,8 @@ def run_convert_and_examples(workdir: Path) -> dict:
     print(f"[examples] vis_demo wrote {sizes}", flush=True)
     torch.cuda.synchronize()
     out["launches"] = read_launches()
-    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(out["launches"] == {"soft_head": 0, "layernorm": 0, "conv3x3": 0,
+                              "bn_act": BN_ACT_PER_REQUEST},
           f"convert and examples launches {out['launches']}")
     shutil.rmtree(workdir, ignore_errors=True)
     return out
@@ -3647,8 +3730,8 @@ def run_surface_path(workdir: Path, smi: str) -> dict:
     torch.cuda.synchronize()
     out = {"imports": a, "notebook": b, "augment": c, "worker_launches": rec["launches"],
            "launches": read_launches(), "seconds": time.perf_counter() - t0}
-    zero = {"soft_head": 0, "layernorm": 0, "conv3x3": 0}
-    check(out["launches"] == zero and out["worker_launches"] == zero,
+    zero = {"soft_head": 0, "layernorm": 0, "conv3x3": 0}  # the worker counts B1-B3
+    check(out["launches"] == {**zero, "bn_act": 0} and out["worker_launches"] == zero,
           f"[surface] launches {out['launches']}, the worker's {out['worker_launches']}")
     print(f"[surface] kernel launches: {out['launches']} here, {out['worker_launches']} in the "
           f"worker", flush=True)
@@ -3693,7 +3776,7 @@ def run_docs_path(workdir: Path, smi: str) -> dict:
     snippets = rec["snippets"]
     check([s["snippet"] for s in snippets] == runnable and len(runnable) >= 5,
           f"[docs] ran snippets {[s['snippet'] for s in snippets]} of {runnable}")
-    zero = {"soft_head": 0, "layernorm": 0, "conv3x3": 0}
+    zero = {"soft_head": 0, "layernorm": 0, "conv3x3": 0}  # the worker counts B1-B3
     for s in snippets:
         tag = f"[docs] snippet{s['snippet']}"
         check(s["device"] == "cuda" and s["outputs_device"] in (None, "cuda:0"),
@@ -3716,7 +3799,8 @@ def run_docs_path(workdir: Path, smi: str) -> dict:
     out = {"snippets": [{k: v for k, v in s.items() if k != "lines"} for s in snippets],
            "worker_launches": {k: sum(s["launches"][k] for s in snippets) for k in zero},
            "launches": read_launches(), "seconds": time.perf_counter() - t0, "card": smi}
-    check(out["launches"] == zero, f"[docs] launches in this process {out['launches']}")
+    check(out["launches"] == {**zero, "bn_act": 0},
+          f"[docs] launches in this process {out['launches']}")
     print(f"[docs] {len(snippets)} snippets of {DOCS_GUIDE.name} on the card with jax, jaxlib, "
           f"flax, optax and nbdt_tpu blocked: {sum(s['seconds'] for s in snippets):.2f} s of "
           f"snippets; kernel launches {out['worker_launches']} in the worker, "
@@ -3785,7 +3869,7 @@ def watch_release_eval(rec: dict):
         vr._evaluate = real
 
 
-release_launches = dict.fromkeys(("soft_head", "layernorm", "conv3x3"), 0)
+release_launches = dict.fromkeys(("soft_head", "layernorm", "conv3x3", "bn_act"), 0)
 
 
 def run_release_tool(argv: list, device: str = "cuda") -> tuple:
@@ -3806,7 +3890,7 @@ def run_release_tool(argv: list, device: str = "cuda") -> tuple:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     launches = read_launches()
-    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0},
+    check(launches == {"soft_head": 0, "layernorm": 0, "conv3x3": 0, "bn_act": 0},
           f"[release] the tool launched {launches}: {argv}")
     for k, v in launches.items():
         release_launches[k] += v
@@ -4174,6 +4258,147 @@ def time_layernorm() -> dict:
     return out
 
 
+BN_ACT_SHAPES = {"resnet18 stage 1": (BATCH, 64, 32, 32), "hrnet branch 0": (32, 48, 130, 130)}
+
+
+def seeded_bn(C: int, g: torch.Generator) -> torch.nn.BatchNorm2d:
+    """An eval ``BatchNorm2d`` on the card with seeded scales, shifts and
+    statistics."""
+    bn = torch.nn.BatchNorm2d(C).cuda().eval()
+    with torch.no_grad():
+        bn.weight.copy_(0.5 + torch.rand(C, device="cuda", generator=g))
+        bn.bias.normal_(0, 0.1, generator=g)
+        bn.running_mean.normal_(0, 0.5, generator=g)
+        bn.running_var.copy_(0.5 + torch.rand(C, device="cuda", generator=g))
+    return bn
+
+
+def time_bn_act() -> dict:
+    """The eval BatchNorm + residual + ReLU pass at ResNet18's first stage
+    (8192 images) and HRNetV2-W48's branch 0 (32 images), for each residual
+    (none: a block's first conv; the block's input; the shortcut conv's
+    output through its BatchNorm): the kernel, its plain version, and the
+    library passes it replaces (``F.batch_norm`` in eval, the add,
+    ``relu_``). Two rotating inputs of 104 MB to 2.1 GB each, more than the
+    50 MB L2, so reads come from HBM. The kernel writes over its input; the
+    values it compounds over the timed calls do not change its work."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for label, shape in BN_ACT_SHAPES.items():
+        bn, rbn = seeded_bn(shape[1], g), seeded_bn(shape[1], g)
+        xs = [torch.randn(shape, device="cuda", generator=g) for _ in range(2)]
+        r = torch.randn(shape, device="cuda", generator=g)
+
+        def library(x, residual, shortcut_bn):
+            y = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False,
+                             0.0, bn.eps)
+            if residual is not None:
+                y = y + (residual if shortcut_bn is None else F.batch_norm(
+                    residual, shortcut_bn.running_mean, shortcut_bn.running_var,
+                    shortcut_bn.weight, shortcut_bn.bias, False, 0.0, shortcut_bn.eps))
+            return y.relu_()
+
+        for variant, residual, shortcut_bn in (("none", None, None), ("residual", r, None),
+                                               ("residual+bn", r, rbn)):
+            it = itertools.count()
+            with torch.no_grad():
+                t = {
+                    "ms": time_cuda(lambda: ba.fused_bn_act(xs[next(it) % 2], bn, residual,
+                                                            shortcut_bn)),
+                    "plain_ms": time_cuda(lambda: ba.bn_act_reference(
+                        xs[next(it) % 2], bn, residual, shortcut_bn)),
+                    "library_ms": time_cuda(lambda: library(xs[next(it) % 2], residual,
+                                                            shortcut_bn)),
+                }
+            nbytes = (2 + (residual is not None)) * xs[0].numel() * 4
+            t["bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+            t["bytes_share"] = t["bound_ms"] / t["ms"]
+            print(f"[times] bn_act {label} {list(shape)} {variant}: kernel {t['ms']:.5f} ms "
+                  f"({nbytes / t['ms'] / 1e6:.1f} GB/s, {100 * t['bytes_share']:.1f}% of "
+                  f"3.35 TB/s), plain {t['plain_ms']:.5f} ms, F.batch_norm + add + relu_ "
+                  f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms (bytes)", flush=True)
+            out[f"{label}/{variant}"] = t
+        del xs, r
+    return out
+
+
+WITNESS_SEED = 2 ** 33 + 26  # as large as the benchmark's own seeds
+# (cell, images a request, requests): a few requests of each served CNN cell
+WITNESS_CELLS = (("hrnetv2_w48_ade20k.offline", 4, 2), ("resnet18_cifar10.offline", 1024, 2))
+# The kernel path's gap to float64 over the library path's: 0.99 for HRNetV2 and 1.68 for
+# ResNet18 on an H100 (the largest gap of a few requests); rounding misplaced by a fault
+# reads orders of magnitude above
+WITNESS_RATIO = 3
+
+
+def bn_act_witness() -> dict:
+    """How far from exact each side of the benchmark's ``prob_gap`` is, on
+    its two served CNN cells' weights and inputs (``benchmark.harness``,
+    TF32 off): the class probabilities of the program with bn_act, of the
+    program on the library's passes, and of the f32 reference, each against
+    the reference run in float64 (its logits rounded to f32 before the soft
+    rules, whose own rounding is about 1e-7 here), and the two program
+    sides against the f32 reference, as ``prob_gap`` reads them. The kernel
+    path must be no further from float64 than WITNESS_RATIO times the
+    library path."""
+    from benchmark import cells, harness
+
+    out = {}
+    for workload, n, requests in WITNESS_CELLS:
+        _, cell, config = cells.cell_files(workload)
+        with harness.precision(False):
+            ctx = harness.Context(workload, cell, config, WITNESS_SEED, device="cuda")
+            ref, rules = ctx.reference(), ctx.rules()
+            ref64 = copy.deepcopy(ref).double()
+            if cell["kind"] == "seg_closed_loop":
+                seg = harness.load_module(harness.BENCH / "traffic" / "seg_closed_loop.py")
+                ref32 = seg.SegReferenceServe(ref, rules, tf32=False,
+                                              block=cell["params"]["check_block"])
+                program = SoftSegNBDT(config["tree"]["dataset"], ctx.program_model(),
+                                      tree=ctx.program_tree(), device=ctx.device)
+            else:
+                ref32 = harness.ReferenceServe(ref, rules, tf32=False)
+                program = ctx.serve_system()
+            library = OnLibraryPasses(program)
+            gaps = dict.fromkeys(("kernel", "library", "reference_f32", "kernel_vs_reference_f32",
+                                  "library_vs_reference_f32"), 0.0)
+            passes = []
+            for i in range(requests):
+                x = ctx.images(n, f"witness{i}")
+                reset_launches()
+                fused = program(x)
+                passes.append(read_launches()["bn_act"])
+                plain = library(x)
+                check(read_launches()["bn_act"] == passes[-1], f"{workload}: the library side "
+                      "ran bn_act")
+                want = ref32(x)
+                with torch.no_grad():
+                    exact = rules.probs(ref64(x.permute(0, 3, 1, 2).double()).float())
+                exact = exact.view_as(want)
+                for key, a, b in (("kernel", fused, exact), ("library", plain, exact),
+                                  ("reference_f32", want, exact),
+                                  ("kernel_vs_reference_f32", fused, want),
+                                  ("library_vs_reference_f32", plain, want)):
+                    gaps[key] = max(gaps[key], float((a.float() - b).abs().max()))
+                del fused, plain, want, exact
+        check(min(passes) > 0, f"{workload}: bn_act passes a request {passes}")
+        print(f"[witness] {workload}, seed {WITNESS_SEED}, {requests} requests of {n}: largest "
+              f"class-probability gap to the float64 reference: program with bn_act "
+              f"{gaps['kernel']:.4g}, program on the library's passes {gaps['library']:.4g}, "
+              f"f32 reference {gaps['reference_f32']:.4g}; to the f32 reference (prob_gap): "
+              f"with bn_act {gaps['kernel_vs_reference_f32']:.4g}, on the library's passes "
+              f"{gaps['library_vs_reference_f32']:.4g}; bn_act passes a request {passes[0]}",
+              flush=True)
+        check(gaps["kernel"] <= WITNESS_RATIO * gaps["library"],
+              f"{workload}: the bn_act path is {gaps['kernel']:.3g} from float64, more than "
+              f"{WITNESS_RATIO} times the library path's {gaps['library']:.3g}")
+        out[workload] = {**gaps, "passes_per_request": passes[0], "requests": requests,
+                         "images": n, "seed": WITNESS_SEED}
+        del program, library, ref32, ref64, ctx
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_soft_head(ta, batch: int, dim: int, seed: int, label: str, w_sets: int = 1,
                    feat_bufs: int = 4) -> dict:
     """B1 at one shape, f32 and bf16 W: the kernel, its plain version and,
@@ -4245,7 +4470,7 @@ def main() -> int:
     # Build: one nvcc per source, all started together
     t0 = time.perf_counter()
     _build.build_all()
-    kernels = ("soft_head", "layernorm", "conv3x3")
+    kernels = ("soft_head", "layernorm", "conv3x3", "bn_act")
     for name in kernels:
         _build.load_library(name)
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
@@ -4276,6 +4501,7 @@ def main() -> int:
     head_err = check_soft_head_kernel(trees, wrn_trees)
     ln_err = check_layernorm_kernel()
     conv_err = check_conv3x3_kernel(conv_inp)
+    bn_act_cases = check_bn_act_kernel()
 
     # Main paths, each with the counts set to 0 just before it
     resnet = run_resnet_path(trees)
@@ -4359,6 +4585,8 @@ def main() -> int:
                                "WRN-28-10 TinyImagenet200 head B=1024 D=640 C=200",
                                feat_bufs=40)
     ln_t = time_layernorm()
+    bn_act_t = time_bn_act()
+    witness = bn_act_witness()
 
     def with_rates(times: dict, batch: int) -> dict:
         """The request times plus images/s for each device (event) time."""
@@ -4561,6 +4789,32 @@ def main() -> int:
         "bound_ms": conv_probe["bound_ms"],
         "bound_by": conv_probe["bound_by"],
         "library_ms": conv_t["library"]["ms"],
+    }, {
+        "name": "bn_act",
+        "route": "cuda",
+        "source": "nbdt_torch/csrc/bn_act.cu",
+        "replaces": None,
+        "launches": resnet["launches"]["bn_act"] + imnet["resnet50"]["launches"]["bn_act"]
+                    + examples["launches"]["bn_act"],
+        "launches_by_path": {"resnet18": resnet["launches"]["bn_act"],
+                             "resnet50": imnet["resnet50"]["launches"]["bn_act"],
+                             "examples": examples["launches"]["bn_act"],
+                             "efficientnet_b7b":
+                                 imnet["efficientnet_b7b"]["launches"]["bn_act"],
+                             "vit_b16": vit["launches"]["bn_act"],
+                             "wrn28_10": wrn["launches"]["bn_act"],
+                             "training": train["launches"]["bn_act"],
+                             "zero_shot": zero_shot["launches"]["bn_act"],
+                             "export": export["launches"]["bn_act"],
+                             "parallel": parallel["launches"]["bn_act"],
+                             "segmentation": seg["launches"]["bn_act"],
+                             "imagenet_train": imagenet_train["launches"]["bn_act"],
+                             "release": release["launches"]["bn_act"],
+                             "surface": surface["launches"]["bn_act"],
+                             "docs": docs["launches"]["bn_act"]},
+        "cases_equal_to_plain": bn_act_cases,
+        "times": bn_act_t,
+        "float64_witness": witness,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

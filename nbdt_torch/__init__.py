@@ -25,7 +25,8 @@ file path. Entry points run on ``device="cuda"`` unless the caller passes
   serialization  a pure-Python reader of the JAX package's .msgpack
               checkpoints
   ops         hand-written CUDA kernels (csrc/: soft head, LayerNorm, 3x3
-              conv) beside their plain versions
+              conv, eval BatchNorm + residual + ReLU) beside their plain
+              versions
   model       NBDT / SoftNBDT / HardNBDT wrappers (NHWC input), model_urls,
               and the per-pixel SegNBDT / SoftSegNBDT / HardSegNBDT
   serving     make_serving_fn; export_serving / load_serving (torch.export

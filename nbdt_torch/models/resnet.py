@@ -22,6 +22,11 @@ BatchNorm in the stream dtype, as flax does with ``dtype=self.dtype`` and
 norm). ``folded=True`` is the serving variant with the BatchNorms baked into
 conv biases (:func:`nbdt_torch.models.fold.fold_batchnorm`); there the
 activations stay in ``dtype`` end to end.
+
+Each BatchNorm that a ReLU follows, with the residual add where there is
+one, runs as one pass over its conv's output, written in place, by the
+hand-written kernel of ``ops/bn_act.py`` where :func:`bn_act_rule` allows
+(f32 eval on the card); everywhere else as ``F.relu(bn(y) [+ shortcut])``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.bn_act import fused_bn_act
 
 BN_IMPLS = ("f32", "bf16")
 
@@ -57,6 +64,47 @@ def _norm(bn: Optional[nn.BatchNorm2d], x: torch.Tensor, f32: bool = True) -> to
     if bn is None:
         return x
     return bn(x.float() if f32 else x)
+
+
+def bn_act_rule(device_type: str, dtype: torch.dtype, contiguous: bool, batch_stats: bool,
+                grad_enabled: bool, tracing: bool) -> bool:
+    """Whether a BatchNorm, the residual add and the ReLU after a conv run as
+    the one hand-written pass of ``ops/bn_act.py``: only for a CUDA f32
+    output in contiguous NCHW (the layout rule's f32 serving layout), a
+    BatchNorm on its running statistics, no autograd and no
+    ``torch.compile`` or ``torch.export`` trace. Training needs batch
+    statistics and a backward, and a trace has no tensor to hand the kernel,
+    so both keep the library's passes, as bf16, channels-last and the CPU
+    do."""
+    return (device_type == "cuda" and dtype == torch.float32 and contiguous
+            and not batch_stats and not grad_enabled and not tracing)
+
+
+def _fused(y: torch.Tensor, *norms: Optional[nn.BatchNorm2d],
+           residual: Optional[torch.Tensor] = None) -> bool:
+    """:func:`bn_act_rule` read off a conv output ``y``, its BatchNorm
+    ``norms[0]`` (None where folded: no pass to fuse), the shortcut's, and
+    the residual. A compiler or exporter traces with fakes or proxies in
+    place of plain tensors."""
+    if norms[0] is None:
+        return False
+    tracing = (torch.compiler.is_compiling() or torch.jit.is_tracing()
+               or type(y) is not torch.Tensor)
+    return bn_act_rule(
+        y.device.type, y.dtype,
+        y.is_contiguous() and (residual is None or residual.is_contiguous()),
+        any(n.training or n.running_mean is None for n in norms if n is not None),
+        torch.is_grad_enabled(), tracing)
+
+
+def _norm_act(bn: Optional[nn.BatchNorm2d], y: torch.Tensor, f32: bool = True) -> torch.Tensor:
+    """``F.relu(_norm(bn, y, f32))``, as one pass of the kernel where the
+    rule allows."""
+    if _fused(y, bn):
+        return fused_bn_act(y, bn)
+    out = _norm(bn, y, f32)
+    del y  # freed before the ReLU, as when the conv's output was a temporary
+    return F.relu(out)
 
 
 def _check_bn_impl(bn_impl: str) -> bool:
@@ -86,11 +134,25 @@ class _Block(nn.Module):
     def norm(self, bn, x):
         return _norm(bn, x, self.bn_f32)
 
-    def shortcut_of(self, x):
+    def shortcut_parts(self):
+        """The shortcut's 1x1 conv and its BatchNorm, each None where the
+        block has none (an identity shortcut; a folded model's BatchNorm)."""
         seq = getattr(self, self.shortcut_name)
         if not len(seq):
-            return x
-        return self.norm(seq[1] if len(seq) > 1 else None, _conv(seq[0], x))
+            return None, None
+        return seq[0], seq[1] if len(seq) > 1 else None
+
+    def norm_act(self, bn, y, x=None):
+        """``F.relu(bn(y))``, or with the block's input ``x`` ``F.relu(bn(y)
+        + shortcut(x))``, as one pass of the kernel where the rule allows."""
+        if x is None:
+            return _norm_act(bn, y, self.bn_f32)
+        conv, shortcut_bn = self.shortcut_parts()
+        if _fused(y, bn, shortcut_bn, residual=x):
+            return fused_bn_act(y, bn, x if conv is None else _conv(conv, x), shortcut_bn)
+        out = self.norm(bn, y)
+        del y
+        return F.relu(out + (x if conv is None else self.norm(shortcut_bn, _conv(conv, x))))
 
 
 class BasicBlock(_Block):
@@ -107,9 +169,8 @@ class BasicBlock(_Block):
         self.bn2 = None if folded else nn.BatchNorm2d(planes)
 
     def forward(self, x):
-        out = F.relu(self.norm(self.bn1, _conv(self.conv1, x)))
-        out = self.norm(self.bn2, _conv(self.conv2, out))
-        return F.relu(out + self.shortcut_of(x))
+        out = self.norm_act(self.bn1, _conv(self.conv1, x))
+        return self.norm_act(self.bn2, _conv(self.conv2, out), x)
 
 
 class Bottleneck(_Block):
@@ -133,10 +194,9 @@ class Bottleneck(_Block):
         self.bn3 = None if folded else nn.BatchNorm2d(out)
 
     def forward(self, x):
-        out = F.relu(self.norm(self.bn1, _conv(self.conv1, x)))
-        out = F.relu(self.norm(self.bn2, _conv(self.conv2, out)))
-        out = self.norm(self.bn3, _conv(self.conv3, out))
-        return F.relu(out + self.shortcut_of(x))
+        out = self.norm_act(self.bn1, _conv(self.conv1, x))
+        out = self.norm_act(self.bn2, _conv(self.conv2, out))
+        return self.norm_act(self.bn3, _conv(self.conv3, out), x)
 
 
 class ResNet(nn.Module):
@@ -177,7 +237,7 @@ class ResNet(nn.Module):
                 m.to(dtype)
 
     def forward(self, x, features_only: bool = False):
-        out = F.relu(_norm(self.bn1, _conv(self.conv1, x), self.bn_f32))
+        out = _norm_act(self.bn1, _conv(self.conv1, x), self.bn_f32)
         if self.imagenet_stem:
             out = F.max_pool2d(out, 3, 2, 1)
         out = self.layer4(self.layer3(self.layer2(self.layer1(out))))
