@@ -19,6 +19,24 @@ pad is computed in ``forward`` and applied with ``F.pad``. At stride 1 (odd
 kernels) it is ``kernel // 2`` on each side, the conv's own padding, as in
 the other family, which pads ``kernel // 2`` symmetrically everywhere.
 
+Inside the NBDT wrapper's ``backbone`` span each ``MBConv`` block runs its
+layers in spans (recorded only under a profiler), with no attributes:
+
+    backbone
+      pointwise   the expansion ConvBlock (1x1 conv, BatchNorm, swish), where
+                  the block expands
+      depthwise   the depthwise ConvBlock: the "SAME" pad, the conv,
+                  BatchNorm, swish
+      se          SqueezeExcite: the mean, two 1x1 convs, swish, the sigmoid
+                  and the gate's multiply
+      pointwise   the projection ConvBlock (1x1 conv, BatchNorm) and the
+                  residual add
+
+The stem, ``final_block`` and the pooling run in ``backbone`` outside them.
+At B7b that is 55 ``depthwise``, 55 ``se`` and 106 ``pointwise`` spans a
+call. ``efficientnet_b7b`` at 600x600 is the benchmark's
+``efficientnet_b7b_imagenet1000`` configuration.
+
 ``dtype`` mirrors the flax knob: with bf16 the convs (the SE's 1x1 convs
 too) hold bf16 weights and compute in bf16, while every BatchNorm (eps 1e-3)
 normalizes and outputs f32, so swish, the SE's mean and the residual sums
@@ -34,6 +52,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..profiling import span
 from .resnet import _conv
 
 __all__ = ("EfficientNet",) + tuple(
@@ -155,10 +174,17 @@ class MBConv(nn.Module):
         setattr(self, self.names[1], pw)
 
     def forward(self, x):
-        h = self.conv1(x) if self.expand else x
-        h = getattr(self, self.names[0])(h)
-        h = getattr(self, self.names[1])(self.se(h))
-        return h + x if self.residual else h
+        h = x
+        if self.expand:
+            with span("pointwise", x.device):
+                h = self.conv1(x)
+        with span("depthwise", x.device):
+            h = getattr(self, self.names[0])(h)
+        with span("se", x.device):
+            h = self.se(h)
+        with span("pointwise", x.device):
+            h = getattr(self, self.names[1])(h)
+            return h + x if self.residual else h
 
 
 class EfficientNet(nn.Module):
