@@ -82,8 +82,9 @@ probe's parity and timing phases), the training path, the WRN-28-10 serving
 and training path, the zero-shot path, the ImageNet path, the zoo path, the
 export path, the parallel path, the segmentation path, the ImageNet
 training path with its tp pair, the converter and examples, the release
-path, the surface phase, the docs phase, times; the native phase runs after
-the training path.
+path, the surface phase, the docs phase, times (dw_bn_swish's at B7b's
+depthwise shapes among them) and the float64 witness; the native phase runs
+after the training path.
 """
 
 from __future__ import annotations
@@ -120,10 +121,12 @@ from nbdt_torch.hierarchy.digraph import Digraph
 from nbdt_torch.hierarchy.generate import find_classifier
 from nbdt_torch.main import main as train_cli
 from nbdt_torch.models import ResNet18, SegNet, vit_b16, wrn28_10_cifar10, wrn28_10_cifar100
+from nbdt_torch.models import efficientnet as efficientnet_module
 from nbdt_torch.models import resnet as resnet_module
 from nbdt_torch.ops import _build
 from nbdt_torch.ops import bn_act as ba
 from nbdt_torch.ops import conv3x3 as conv
+from nbdt_torch.ops import dw_bn_swish as dw
 from nbdt_torch.ops import layernorm as ln
 from nbdt_torch.ops import soft_traversal as st
 from nbdt_torch.rules import (HardEmbeddedDecisionRules, SoftEmbeddedDecisionRules,
@@ -221,6 +224,14 @@ WRN_BF16_AGREE = 0.9
 EFF_BATCH = 64
 EFF_IMG = 600
 EFF_DIM = 2560
+# EfficientNet-B7b's depthwise convs at 600px: (channels, input side, k, stride,
+# blocks) of each kind, TF "SAME" pads; one dw_bn_swish pass each
+EFF_DW_SHAPES = ((64, 300, 3, 1, 1), (32, 300, 3, 1, 3), (192, 300, 3, 2, 1),
+                 (288, 150, 3, 1, 6), (288, 150, 5, 2, 1), (480, 75, 5, 1, 6),
+                 (480, 75, 3, 2, 1), (960, 38, 3, 1, 9), (960, 38, 5, 1, 1),
+                 (1344, 38, 5, 1, 9), (1344, 38, 5, 2, 1), (2304, 19, 5, 1, 12),
+                 (2304, 19, 3, 1, 1), (3840, 19, 3, 1, 3))
+EFF_DW_PER_REQUEST = sum(shape[-1] for shape in EFF_DW_SHAPES)  # 55
 R50_BATCH = 256
 R50_IMG = 224
 R50_DIM = 2048
@@ -566,7 +577,7 @@ def check(ok: bool, msg: str) -> None:
 
 
 def reset_launches() -> None:
-    st.launches = ln.launches = conv.launches = ba.launches = 0
+    st.launches = ln.launches = conv.launches = ba.launches = dw.launches = 0
 
 
 def read_launches() -> dict:
@@ -576,14 +587,16 @@ def read_launches() -> dict:
 
 @contextlib.contextmanager
 def library_passes():
-    """The ResNet blocks' BatchNorm, residual add and ReLU as the library's
-    passes (``bn_act_rule`` off) inside the block, whatever the call."""
-    rule = resnet_module.bn_act_rule
-    resnet_module.bn_act_rule = lambda *args: False
+    """The ResNet blocks' BatchNorm, residual add and ReLU, and EfficientNet's
+    depthwise conv, BatchNorm and swish, as the library's passes
+    (``bn_act_rule`` and ``dw_bn_swish_rule`` off) inside the block,
+    whatever the call."""
+    rules = resnet_module.bn_act_rule, efficientnet_module.dw_bn_swish_rule
+    resnet_module.bn_act_rule = efficientnet_module.dw_bn_swish_rule = lambda *args: False
     try:
         yield
     finally:
-        resnet_module.bn_act_rule = rule
+        resnet_module.bn_act_rule, efficientnet_module.dw_bn_swish_rule = rules
 
 
 class OnLibraryPasses:
@@ -1948,12 +1961,13 @@ def imagenet_model(ctor, img: int, seed: int, sd_floor: float = 0.0):
 
 
 def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
-                   seed: int, tag: str = "[imagenet]", bn_act_per_request: int = 0) -> dict:
+                   seed: int, tag: str = "[imagenet]", bn_act_per_request: int = 0,
+                   dw_per_request: int = 0) -> dict:
     """One ImageNet backbone's main path: REQUESTS requests of ``batch``
-    normalized NHWC f32 images through SoftNBDT(fused=True) (one B1 launch
-    and ``bn_act_per_request`` bn_act passes each, counts set to 0 just
-    before) against the plain rules over the library's BatchNorm, add and
-    ReLU, B1 held to its plain
+    normalized NHWC f32 images through SoftNBDT(fused=True) (one B1 launch,
+    ``bn_act_per_request`` bn_act passes and ``dw_per_request`` dw_bn_swish
+    passes each, counts set to 0 just before) against the plain rules over
+    the library's passes (:func:`library_passes`), B1 held to its plain
     version on the path's own features (no less exact than it against f64,
     within TOL; argmax 1.0 on rows whose top-2 gap exceeds TOL), a decision
     path, a profiler line and the request times. Returns the record (with
@@ -1971,6 +1985,9 @@ def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
     check(launches == {"soft_head": REQUESTS, "layernorm": 0, "conv3x3": 0,
                        "bn_act": bn_act_per_request * REQUESTS},
           f"{name} path launches {launches} over {REQUESTS} requests")
+    launches["dw_bn_swish"] = dw.launches
+    check(dw.launches == dw_per_request * REQUESTS,
+          f"{name} path: {dw.launches} dw_bn_swish launches over {REQUESTS} requests")
     predicted = min(int(out.argmax(1).unique().numel()) for out in outs)
     for i, (x, out) in enumerate(zip(requests, outs)):
         ref = plain(x)
@@ -1985,6 +2002,7 @@ def serve_imagenet(name: str, model, tree: Tree, batch: int, img: int, dim: int,
               f"{dev:.3g}, {int(out.argmax(1).unique().numel())} of {IMNET_CLASSES} classes "
               "predicted", flush=True)
     del outs, ref
+    check(dw.launches == launches["dw_bn_swish"], f"{name}: the library side ran dw_bn_swish")
     print(f"{tag} {name} launches over {REQUESTS} requests: {json.dumps(launches)}; "
           f"soft_head {st.last_launch['plan']}, grid {st.last_launch['grid']}", flush=True)
     with torch.no_grad():
@@ -2105,15 +2123,16 @@ def run_imagenet_path(trees: dict, workdir: Path) -> dict:
     from nbdt_torch.models import efficientnet_b7b, resnet50
 
     out, heads = {}, {}
-    for name, ctor, tree, batch, img, dim, seed, passes in (
+    for name, ctor, tree, batch, img, dim, seed, passes, dw_passes in (
             ("efficientnet_b7b", efficientnet_b7b, trees["b7b"], EFF_BATCH, EFF_IMG, EFF_DIM, 70,
-             0),
+             0, EFF_DW_PER_REQUEST),
             ("resnet50", resnet50, trees["resnet"], R50_BATCH, R50_IMG, R50_DIM, 80,
-             R50_BN_ACT_PER_REQUEST)):
+             R50_BN_ACT_PER_REQUEST, 0)):
         t0 = time.perf_counter()
         model = imagenet_model(ctor, img, seed)
         rec, fused, plain, feats = serve_imagenet(name, model, tree, batch, img, dim, seed + 3,
-                                                  bn_act_per_request=passes)
+                                                  bn_act_per_request=passes,
+                                                  dw_per_request=dw_passes)
         fold = name == "resnet50"
         srv, u8, ref, top = serve_bf16(name, model, tree, plain, batch, img, seed + 4, fold,
                                        "[imagenet serving]")
@@ -4322,20 +4341,91 @@ def time_bn_act() -> dict:
     return out
 
 
+def time_dw_bn_swish() -> dict:
+    """The depthwise conv + BatchNorm + swish pass at each of B7b's
+    depthwise kinds (EFF_DW_SHAPES) at EFF_BATCH images: the kernel (held to
+    its plain version within 1e-5 of the output's largest magnitude: the
+    two sum k^2 products in another order), its bound by bytes (the input
+    read once, the output written once), its plain version, and the library
+    chain it replaces as in ``ConvBlock`` (``F.pad`` at stride 2, ATen's
+    depthwise ``F.conv2d``, ``F.batch_norm`` in eval, ``F.silu``). Two
+    rotating inputs of 370 MB to 4.4 GB each, more than the 50 MB L2, so
+    reads come from HBM; ``request`` sums each kind times its blocks."""
+    from nbdt_torch.models.efficientnet import same_pads
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    request = dict.fromkeys(("ms", "bound_ms", "plain_ms", "library_ms"), 0.0)
+    for C, side, k, s, blocks in EFF_DW_SHAPES:
+        bn = seeded_bn(C, g)
+        w = torch.randn(C, 1, k, k, device="cuda", generator=g) / k
+        pads = same_pads(side, side, k, s) if s == 2 else [k // 2] * 4
+        xs = [torch.randn(EFF_BATCH, C, side, side, device="cuda", generator=g)
+              for _ in range(2)]
+
+        def library(x):
+            if s == 2:
+                x = F.pad(x, pads)
+            y = F.conv2d(x, w, stride=s, padding=0 if s == 2 else k // 2, groups=C)
+            return F.silu(F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                       False, 0.0, bn.eps))
+
+        it = itertools.count()
+        with torch.no_grad():
+            got = dw.fused_dw_bn_swish(xs[0], w, bn, s, pads)
+            want = dw.dw_bn_swish_reference(xs[0], w, bn, s, pads)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            case = f"dw_bn_swish [{EFF_BATCH}, {C}, {side}, {side}] k{k} s{s} pads {pads}"
+            check(err <= 1e-5 * scale, f"{case}: {err:.3g} from its plain version (largest "
+                                       f"output {scale:.3g})")
+            del got, want
+            t = {
+                "ms": time_cuda(lambda: dw.fused_dw_bn_swish(xs[next(it) % 2], w, bn, s, pads)),
+                "plain_ms": time_cuda(lambda: dw.dw_bn_swish_reference(
+                    xs[next(it) % 2], w, bn, s, pads)),
+                "library_ms": time_cuda(lambda: library(xs[next(it) % 2])),
+                "max_abs_err": err,
+                "blocks": blocks,
+            }
+        side_out = -(-side // s)
+        nbytes = 4 * (EFF_BATCH * C * (side * side + side_out * side_out) + C * k * k)
+        t["bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        t["bytes_share"] = t["bound_ms"] / t["ms"]
+        print(f"[times] {case}: kernel {t['ms']:.5f} ms ({nbytes / t['ms'] / 1e6:.1f} GB/s, "
+              f"{100 * t['bytes_share']:.1f}% of 3.35 TB/s), plain {t['plain_ms']:.5f} ms, "
+              f"F.pad + conv + F.batch_norm + F.silu {t['library_ms']:.5f} ms, bound "
+              f"{t['bound_ms']:.5f} ms (bytes); max |kernel - plain| {err:.3g} of "
+              f"{scale:.3g}; x{blocks} a request", flush=True)
+        out[f"{C}x{side}_k{k}_s{s}"] = t
+        for key in request:
+            request[key] += blocks * t[key]
+        del xs
+    request["bytes_share"] = request["bound_ms"] / request["ms"]
+    print(f"[times] dw_bn_swish over a B7b request of {EFF_BATCH} ({EFF_DW_PER_REQUEST} "
+          f"passes): kernel {request['ms']:.3f} ms, bound {request['bound_ms']:.3f} ms "
+          f"({100 * request['bytes_share']:.1f}%), plain {request['plain_ms']:.3f} ms, library "
+          f"chain {request['library_ms']:.3f} ms", flush=True)
+    out["request"] = request
+    return out
+
+
 WITNESS_SEED = 2 ** 33 + 26  # as large as the benchmark's own seeds
 # (cell, images a request, requests): a few requests of each served CNN cell
-WITNESS_CELLS = (("hrnetv2_w48_ade20k.offline", 4, 2), ("resnet18_cifar10.offline", 1024, 2))
-# The kernel path's gap to float64 over the library path's: 0.99 for HRNetV2 and 1.68 for
-# ResNet18 on an H100 (the largest gap of a few requests); rounding misplaced by a fault
-# reads orders of magnitude above
+WITNESS_CELLS = (("hrnetv2_w48_ade20k.offline", 4, 2), ("resnet18_cifar10.offline", 1024, 2),
+                 ("efficientnet_b7b_imagenet1000.offline", 8, 2))
+# The kernel path's gap to float64 over the library path's: 0.99 for HRNetV2, 1.68 for
+# ResNet18 and 0.99 for B7b on an H100 (the largest gap of a few requests); rounding
+# misplaced by a fault reads orders of magnitude above
 WITNESS_RATIO = 3
 
 
-def bn_act_witness() -> dict:
+def kernel_witness() -> dict:
     """How far from exact each side of the benchmark's ``prob_gap`` is, on
-    its two served CNN cells' weights and inputs (``benchmark.harness``,
-    TF32 off): the class probabilities of the program with bn_act, of the
-    program on the library's passes, and of the f32 reference, each against
+    its served CNN cells' weights and inputs (``benchmark.harness``, TF32
+    off): the class probabilities of the program with its hand-written
+    passes (bn_act, dw_bn_swish), of the program on the library's passes,
+    and of the f32 reference, each against
     the reference run in float64 (its logits rounded to f32 before the soft
     rules, whose own rounding is about 1e-7 here), and the two program
     sides against the f32 reference, as ``prob_gap`` reads them. The kernel
@@ -4367,10 +4457,10 @@ def bn_act_witness() -> dict:
                 x = ctx.images(n, f"witness{i}")
                 reset_launches()
                 fused = program(x)
-                passes.append(read_launches()["bn_act"])
+                passes.append(ba.launches + dw.launches)
                 plain = library(x)
-                check(read_launches()["bn_act"] == passes[-1], f"{workload}: the library side "
-                      "ran bn_act")
+                check(ba.launches + dw.launches == passes[-1], f"{workload}: the library side "
+                      "ran bn_act or dw_bn_swish")
                 want = ref32(x)
                 with torch.no_grad():
                     exact = rules.probs(ref64(x.permute(0, 3, 1, 2).double()).float())
@@ -4381,16 +4471,16 @@ def bn_act_witness() -> dict:
                                   ("library_vs_reference_f32", plain, want)):
                     gaps[key] = max(gaps[key], float((a.float() - b).abs().max()))
                 del fused, plain, want, exact
-        check(min(passes) > 0, f"{workload}: bn_act passes a request {passes}")
+        check(min(passes) > 0, f"{workload}: kernel passes a request {passes}")
         print(f"[witness] {workload}, seed {WITNESS_SEED}, {requests} requests of {n}: largest "
-              f"class-probability gap to the float64 reference: program with bn_act "
+              f"class-probability gap to the float64 reference: program with its kernels "
               f"{gaps['kernel']:.4g}, program on the library's passes {gaps['library']:.4g}, "
               f"f32 reference {gaps['reference_f32']:.4g}; to the f32 reference (prob_gap): "
-              f"with bn_act {gaps['kernel_vs_reference_f32']:.4g}, on the library's passes "
-              f"{gaps['library_vs_reference_f32']:.4g}; bn_act passes a request {passes[0]}",
+              f"with its kernels {gaps['kernel_vs_reference_f32']:.4g}, on the library's passes "
+              f"{gaps['library_vs_reference_f32']:.4g}; kernel passes a request {passes[0]}",
               flush=True)
         check(gaps["kernel"] <= WITNESS_RATIO * gaps["library"],
-              f"{workload}: the bn_act path is {gaps['kernel']:.3g} from float64, more than "
+              f"{workload}: the kernel path is {gaps['kernel']:.3g} from float64, more than "
               f"{WITNESS_RATIO} times the library path's {gaps['library']:.3g}")
         out[workload] = {**gaps, "passes_per_request": passes[0], "requests": requests,
                          "images": n, "seed": WITNESS_SEED}
@@ -4470,7 +4560,7 @@ def main() -> int:
     # Build: one nvcc per source, all started together
     t0 = time.perf_counter()
     _build.build_all()
-    kernels = ("soft_head", "layernorm", "conv3x3", "bn_act")
+    kernels = ("soft_head", "layernorm", "conv3x3", "bn_act", "dw_bn_swish")
     for name in kernels:
         _build.load_library(name)
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
@@ -4586,7 +4676,8 @@ def main() -> int:
                                feat_bufs=40)
     ln_t = time_layernorm()
     bn_act_t = time_bn_act()
-    witness = bn_act_witness()
+    dw_t = time_dw_bn_swish()
+    witness = kernel_witness()
 
     def with_rates(times: dict, batch: int) -> dict:
         """The request times plus images/s for each device (event) time."""
@@ -4815,6 +4906,16 @@ def main() -> int:
         "cases_equal_to_plain": bn_act_cases,
         "times": bn_act_t,
         "float64_witness": witness,
+    }, {
+        "name": "dw_bn_swish",
+        "route": "cuda",
+        "source": "nbdt_torch/csrc/dw_bn_swish.cu",
+        "replaces": None,
+        "launches": imnet["efficientnet_b7b"]["launches"]["dw_bn_swish"],
+        "launches_by_path": {"efficientnet_b7b": imnet["efficientnet_b7b"]["launches"]
+                             ["dw_bn_swish"],
+                             "resnet50": imnet["resnet50"]["launches"]["dw_bn_swish"]},
+        "times": dw_t,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -26,7 +26,8 @@ layers in spans (recorded only under a profiler), with no attributes:
       pointwise   the expansion ConvBlock (1x1 conv, BatchNorm, swish), where
                   the block expands
       depthwise   the depthwise ConvBlock: the "SAME" pad, the conv,
-                  BatchNorm, swish
+                  BatchNorm, swish (one pass of ``ops/dw_bn_swish.py``
+                  where :func:`dw_bn_swish_rule` allows)
       se          SqueezeExcite: the mean, two 1x1 convs, swish, the sigmoid
                   and the gate's multiply
       pointwise   the projection ConvBlock (1x1 conv, BatchNorm) and the
@@ -46,14 +47,15 @@ run in f32; the pooled features and the classifier are f32.
 from __future__ import annotations
 
 import math
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import dw_bn_swish as dw
 from ..profiling import span
-from .resnet import _conv
+from .resnet import _conv, bn_act_rule, tracing
 
 __all__ = ("EfficientNet",) + tuple(
     f"efficientnet_b{i}{s}" for i in range(9) for s in ("", "b", "c"))
@@ -107,14 +109,32 @@ def pytorchcv_units(repeats: Sequence[int]) -> Iterator[Tuple[int, int, str]]:
             yield si, bi, f"features.stage{g}.unit{units}"
 
 
-def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """TF "SAME": ``ceil(n / stride)`` outputs, the pad split with its
-    smaller half first."""
+def same_pads(height: int, width: int, kernel: int, stride: int) -> List[int]:
+    """TF "SAME" as ``F.pad``'s (left, right, top, bottom): ``ceil(n /
+    stride)`` outputs, the pad split with its smaller half first."""
     pads = []
-    for n in (x.shape[-1], x.shape[-2]):
+    for n in (width, height):
         total = max((math.ceil(n / stride) - 1) * stride + kernel - n, 0)
         pads += [total // 2, total - total // 2]
+    return pads
+
+
+def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    pads = same_pads(x.shape[-2], x.shape[-1], kernel, stride)
     return F.pad(x, pads) if any(pads) else x
+
+
+def dw_bn_swish_rule(depthwise: bool, activate: bool, kernel: int, stride: int,
+                     *bn_act_inputs) -> bool:
+    """Whether a ConvBlock's conv, BatchNorm and swish run as the one
+    hand-written pass of ``ops/dw_bn_swish.py``: only a depthwise conv of a
+    size and stride the kernel takes, followed by swish, where
+    :func:`~nbdt_torch.models.resnet.bn_act_rule` holds for
+    ``bn_act_inputs`` (CUDA, f32, contiguous NCHW, eval statistics, no
+    autograd, no trace). Training, bf16, channels-last and the CPU keep the
+    library's passes."""
+    return (depthwise and activate and kernel in dw.KERNELS and stride in dw.STRIDES
+            and bn_act_rule(*bn_act_inputs))
 
 
 class ConvBlock(nn.Module):
@@ -131,10 +151,24 @@ class ConvBlock(nn.Module):
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x):
+        if self._fused(x):
+            pads = (same_pads(x.shape[-2], x.shape[-1], self.kernel, self.stride)
+                    if self.tf_pad else [self.kernel // 2] * 4)
+            return dw.fused_dw_bn_swish(x.to(self.conv.weight.dtype), self.conv.weight,
+                                        self.bn, self.stride, pads)
         if self.tf_pad:
             x = _same_pad(x, self.kernel, self.stride)
         h = self.bn(_conv(self.conv, x).float())
         return F.silu(h) if self.activate else h
+
+    def _fused(self, x: torch.Tensor) -> bool:
+        """:func:`dw_bn_swish_rule` read off the block and its input; the
+        conv computes in its weight's dtype (``_conv`` casts ``x`` to it)."""
+        conv, bn = self.conv, self.bn
+        return dw_bn_swish_rule(
+            conv.groups == conv.in_channels == conv.out_channels, self.activate, self.kernel,
+            self.stride, x.device.type, conv.weight.dtype, x.is_contiguous(),
+            bn.training or bn.running_mean is None, torch.is_grad_enabled(), tracing(x))
 
 
 class SqueezeExcite(nn.Module):

@@ -84,17 +84,23 @@ def _fused(y: torch.Tensor, *norms: Optional[nn.BatchNorm2d],
            residual: Optional[torch.Tensor] = None) -> bool:
     """:func:`bn_act_rule` read off a conv output ``y``, its BatchNorm
     ``norms[0]`` (None where folded: no pass to fuse), the shortcut's, and
-    the residual. A compiler or exporter traces with fakes or proxies in
-    place of plain tensors."""
+    the residual."""
     if norms[0] is None:
         return False
-    tracing = (torch.compiler.is_compiling() or torch.jit.is_tracing()
-               or type(y) is not torch.Tensor)
     return bn_act_rule(
         y.device.type, y.dtype,
         y.is_contiguous() and (residual is None or residual.is_contiguous()),
         any(n.training or n.running_mean is None for n in norms if n is not None),
-        torch.is_grad_enabled(), tracing)
+        torch.is_grad_enabled(), tracing(y))
+
+
+def tracing(t: torch.Tensor) -> bool:
+    """Whether ``t`` flows through a ``torch.compile`` or ``torch.export``
+    trace (or a TorchScript one): a compiler or exporter traces with fakes
+    or proxies in place of plain tensors, and has no tensor to hand a
+    kernel."""
+    return (torch.compiler.is_compiling() or torch.jit.is_tracing()
+            or type(t) is not torch.Tensor)
 
 
 def _norm_act(bn: Optional[nn.BatchNorm2d], y: torch.Tensor, f32: bool = True) -> torch.Tensor:
