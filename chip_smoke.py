@@ -6,7 +6,10 @@
 Drives the port's paths through its entry points, with seeded random
 weights: soft-NBDT ResNet18 on the CIFAR10 induced hierarchy at batch 8192,
 soft-NBDT ViT-B/16 (224px, 1000 classes, bf16 stream, the fused LayerNorm
-kernel) on the Imagenet1000 induced hierarchy at batch 256, the 3x3 conv
+kernel) on the Imagenet1000 induced hierarchy at batch 256, Swin-B/384 (the
+benchmark cell's seeded system, f32: one request of 128 through the fused
+head with 53 LayerNorm kernel launches, against the library's LayerNorm and
+the plain rules), the 3x3 conv
 probe (``nbdt_torch.tools.probe_pallas_conv``: ResNet18's L1 conv, 64 -> 64
 channels at 32px, + bias + ReLU, bf16) at batch 8192, and tree-supervised
 ResNet18 training on CIFAR10-shaped synthetic data at batch 512 (the
@@ -77,14 +80,14 @@ record.
 
 Phases: device, build, the conv probe's inputs, kernel vs plain (soft_head,
 layernorm, conv3x3, bn_act), ResNet18 main path, its serving fn, ViT-B/16
-main path, its f32 gate, its serving fn, the conv probe path (one request, then the
-probe's parity and timing phases), the training path, the WRN-28-10 serving
-and training path, the zero-shot path, the ImageNet path, the zoo path, the
-export path, the parallel path, the segmentation path, the ImageNet
-training path with its tp pair, the converter and examples, the release
-path, the surface phase, the docs phase, times (dw_bn_swish's at B7b's
-depthwise shapes among them) and the float64 witness; the native phase runs
-after the training path.
+main path, its f32 gate, its serving fn, the Swin-B/384 main path, the conv
+probe path (one request, then the probe's parity and timing phases), the
+training path, the WRN-28-10 serving and training path, the zero-shot path,
+the ImageNet path, the zoo path, the export path, the parallel path, the
+segmentation path, the ImageNet training path with its tp pair, the
+converter and examples, the release path, the surface phase, the docs
+phase, times (dw_bn_swish's at B7b's depthwise shapes among them) and the
+float64 witness; the native phase runs after the training path.
 """
 
 from __future__ import annotations
@@ -144,6 +147,15 @@ VIT_IMG = 224
 VIT_DIM = 768
 VIT_CLASSES = 1000
 VIT_LN_PER_REQUEST = 25  # 2 per block x 12 blocks + the final LayerNorm
+# Swin-B/384 path: the benchmark cell swin_b_w12_384_imagenet1000.offline's
+# seeded system (benchmark.harness), one request of its 128 f32 images at
+# 384px through SoftNBDT(fused=True) on the Imagenet1000 induced tree (B1 at
+# D=1024, C=1000)
+SWIN_CELL = "swin_b_w12_384_imagenet1000.offline"
+SWIN_SEED = 2 ** 33 + 29  # as large as the benchmark's own seeds
+SWIN_DIM = 1024
+SWIN_LN_PER_REQUEST = 53  # the patch embedding, 2 per block x 24, the 3 merges, the final norm
+SWIN_TIMED = 3
 BN_ACT_PER_REQUEST = 17  # ResNet18 in f32: the stem, 2 per BasicBlock x 8
 PROBE_PARITY_BATCH = 64  # tools/probe_pallas_conv.py's --parity-batch
 REQUESTS = 3
@@ -955,12 +967,20 @@ def check_soft_head_kernel(trees: dict, wrn_trees: dict) -> float:
 
 
 def check_layernorm_kernel() -> dict:
-    """B2 vs its plain version: the ViT-B shape, an odd row count, and a row
-    too wide for registers (the streamed instance), f32 and bf16. Returns the
-    largest max-abs error per dtype."""
+    """B2 vs its plain version: the ViT-B shape, an odd row count, a row too
+    wide for registers (the streamed instance), and the seven shapes of a
+    Swin-B/384 request (``layernorm_shapes`` at the cell's batch: in f32,
+    widths 128, 256, 512 and 1024 take B2's register instances 1, 2, 4 and
+    8, 2048 the streamed one), f32 and bf16. Returns the largest max-abs
+    error per dtype."""
+    from benchmark import cells
+    from benchmark.reference.swin import layernorm_shapes
+
+    _, cell, config = cells.cell_files(SWIN_CELL)
+    swin = sorted(set(layernorm_shapes(config["model"], cell["params"]["batch"])))
     g = torch.Generator(device="cuda").manual_seed(2)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for rows, D in ((VIT_BATCH * 197, VIT_DIM), (257, 384), (129, 4096)):
+    for rows, D in ((VIT_BATCH * 197, VIT_DIM), (257, 384), (129, 4096), *swin):
         # residual-stream-like rows: a nonzero mean and spread per row
         x = (torch.randn(rows, D, device="cuda", generator=g) * 2
              + torch.randn(rows, 1, device="cuda", generator=g))
@@ -1267,6 +1287,71 @@ def run_vit_path(tree: Tree) -> dict:
         "plain_f32ln_wall_ms_per_request": wall_ms(lambda: plain(x)),
         "serving_bf16_uint8_ms_per_request": time_cuda(lambda: serve(u8)),
     }
+
+
+def run_swin_path() -> dict:
+    """Swin-B/384 main path, on the benchmark cell's seeded system at
+    SWIN_SEED (``benchmark.harness``, TF32 off): one request of the cell's
+    128 images at 384px through SoftNBDT(fused=True), the counts set to 0
+    just before it (B2 SWIN_LN_PER_REQUEST times, B1 once), against the
+    same weights with ``ln_impl="f32"`` through the plain rules (the
+    library's LayerNorm, no kernel): argmax 1.0 on rows whose top-2 gap
+    exceeds TOL and class probabilities within the cell's ``prob_gap``; B1
+    held to its plain version on the request's features; a profiler line
+    and the request times. Returns the launches and the times."""
+    from benchmark import cells, harness
+
+    _, cell, config = cells.cell_files(SWIN_CELL)
+    spec, batch, limit = config["program"], cell["params"]["batch"], cell["limits"]["prob_gap"]
+    with harness.precision(False):
+        ctx = harness.Context(SWIN_CELL, cell, config, SWIN_SEED, device="cuda")
+        fused = ctx.serve_system()
+        with torch.device("meta"):
+            library = harness.import_string(spec["model"])(**{**spec["kwargs"], "ln_impl": "f32"})
+        library.load_state_dict(ctx.weights(), strict=True, assign=True)
+        plain = SoftNBDT(config["tree"]["dataset"], library, tree=ctx.program_tree(),
+                         device=ctx.device)
+        x = ctx.images(batch, "pool0")
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fused(x)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = {"soft_head": 1, "layernorm": SWIN_LN_PER_REQUEST, "conv3x3": 0, "bn_act": 0}
+        check(launches == want, f"Swin-B path launches {launches} over one request, "
+                                f"expected {want}")
+        ref = plain(x)
+        check(read_launches() == launches, "Swin-B path: the library side launched a kernel")
+        check(out.shape == (batch, IMNET_CLASSES) and bool(torch.isfinite(out).all()),
+              f"Swin-B request: bad output {tuple(out.shape)}")
+        dev = float((out.sum(1) - 1).abs().max())
+        check(dev < 1e-4, f"Swin-B request: leaf probs sum to 1 only within {dev:.3g}")
+        agree, ties, raw = argmax_agreement(out.log(), ref.log(), TOL)
+        gap = float((out - ref).abs().max())
+        print(f"[swin] request of {batch} at {config['model']['image_size']}px: fused (B2, B1) "
+              f"vs f32-LN + plain rules argmax {agree} ({ties} tie rows, raw {raw}), max |prob "
+              f"diff| {gap:.3g} (limit {limit}), max |sum - 1| {dev:.3g}, "
+              f"{int(out.argmax(1).unique().numel())} of {IMNET_CLASSES} classes predicted; "
+              f"launches {json.dumps(launches)}", flush=True)
+        check(agree == 1.0, f"Swin-B fused vs plain argmax agreement {agree}")
+        check(gap <= limit, f"Swin-B fused vs plain: class probabilities {gap:.3g} apart, "
+                            f"beyond the cell's prob_gap {limit}")
+        with torch.no_grad():
+            feats = fused.model(x.permute(0, 3, 1, 2), features_only=True)
+        check(feats.shape == (batch, SWIN_DIM) and feats.dtype == torch.float32,
+              f"Swin-B features {tuple(feats.shape)} {feats.dtype}")
+        head_err = gate_soft_head(feats, fused._head, True,
+                                  f"soft_head on Swin-B request features B={batch} "
+                                  f"D={SWIN_DIM} C={IMNET_CLASSES}", "[swin]", exact=True)
+        del out, ref, feats
+        print_profile(f"Swin-B/384 fused f32 request of {batch}",
+                      *profile_ms(lambda: fused(x), n=2))
+        return {"batch": batch, "launches": launches, "soft_head_leaf_err": head_err,
+                "prob_gap": gap,
+                "fused_ms_per_request": time_cuda(lambda: fused(x), n=SWIN_TIMED, warmup=1),
+                "fused_wall_ms_per_request": wall_ms(lambda: fused(x), n=SWIN_TIMED, warmup=1),
+                "plain_f32ln_ms_per_request": time_cuda(lambda: plain(x), n=SWIN_TIMED,
+                                                        warmup=1)}
 
 
 class PrecisionSpy(torch.utils._python_dispatch.TorchDispatchMode):
@@ -4596,6 +4681,7 @@ def main() -> int:
     # Main paths, each with the counts set to 0 just before it
     resnet = run_resnet_path(trees)
     vit = run_vit_path(trees["Imagenet1000"])
+    swin = run_swin_path()
     conv_probe = run_conv_probe_path(conv_inp)
     del conv_inp
     t0 = time.perf_counter()
@@ -4691,6 +4777,8 @@ def main() -> int:
         "resnet18": {"batch": BATCH, "requests_timed": 10, **with_rates(resnet, BATCH)},
         "vit_b16": {"batch": VIT_BATCH, "image": VIT_IMG, "classes": VIT_CLASSES,
                     "requests_timed": TIMED, **with_rates(vit, VIT_BATCH)},
+        "swin_b_w12_384": {"image": 384, "classes": IMNET_CLASSES, "requests_timed": SWIN_TIMED,
+                           **with_rates(swin, swin["batch"])},
         "conv3x3_probe": {"batch": BATCH, "launches_per_request": conv_probe["launches"],
                           "zero_share": conv_probe["zero_share"],
                           "parity": conv_probe["parity"], "timing": conv_probe["timing"]},
@@ -4738,6 +4826,7 @@ def main() -> int:
     zoo_heads = {f"{arch}_d{dim}_c{IMNET_CLASSES}": zoo["heads"][arch]
                  for arch, _, _, dim in ZOO_PATHS}
     head_launches = (resnet["launches"]["soft_head"] + vit["launches"]["soft_head"]
+                     + swin["launches"]["soft_head"]
                      + wrn["launches"]["soft_head"]
                      + imnet["efficientnet_b7b"]["launches"]["soft_head"]
                      + imnet["resnet50"]["launches"]["soft_head"] + sum(zoo_launches.values()))
@@ -4749,13 +4838,15 @@ def main() -> int:
         "launches": head_launches,
         "launches_by_path": {"resnet18": resnet["launches"]["soft_head"],
                              "vit_b16": vit["launches"]["soft_head"],
+                             "swin_b_w12_384": swin["launches"]["soft_head"],
                              "wrn28_10": wrn["launches"]["soft_head"],
                              "efficientnet_b7b": imnet["efficientnet_b7b"]["launches"]["soft_head"],
                              "resnet50": imnet["resnet50"]["launches"]["soft_head"],
                              "zoo": zoo_launches,
                              "squeezenet1_1":
                              zoo["paths"]["squeezenet1_1"]["launches"]["soft_head"]},
-        "max_abs_err": max(head_err, imnet["efficientnet_b7b"]["soft_head_leaf_err"],
+        "max_abs_err": max(head_err, swin["soft_head_leaf_err"],
+                           imnet["efficientnet_b7b"]["soft_head_leaf_err"],
                            imnet["resnet50"]["soft_head_leaf_err"],
                            *(zoo["paths"][arch]["soft_head_leaf_err"] for arch in zoo_launches)),
         "ms": head_resnet[f32]["ms"],
@@ -4835,7 +4926,9 @@ def main() -> int:
         "route": "cuda",
         "source": "nbdt_torch/csrc/layernorm.cu",
         "replaces": "nbdt_tpu/ops/layernorm.py:24",
-        "launches": vit["launches"]["layernorm"],
+        "launches": vit["launches"]["layernorm"] + swin["launches"]["layernorm"],
+        "launches_by_path": {"vit_b16": vit["launches"]["layernorm"],
+                             "swin_b_w12_384": swin["launches"]["layernorm"]},
         "launches_on_training_path": train["launches"]["layernorm"],
         "launches_on_zero_shot_path": zero_shot["launches"]["layernorm"],
         "launches_on_export_path": export["launches"]["layernorm"],

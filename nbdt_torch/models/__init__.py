@@ -1,12 +1,13 @@
 """Backbones of the port: the CIFAR and torchvision ResNets, the WideResNets,
-the EfficientNets, the ViTs, the rest of torchvision's zoo (MobileNetV2,
+the EfficientNets, the ViTs, Swin-B, the rest of torchvision's zoo (MobileNetV2,
 DenseNet, VGG, AlexNet, GoogLeNet, Inception v3, MNASNet, SqueezeNet,
 ShuffleNetV2), the seg backbones (the seg trainer's SegNet, HRNetV2), BN
 folding, the converter and the registry.
 
 Counterpart of ``nbdt_tpu/models/__init__.py``: the registry is an explicit
 dict of constructors ``arch -> (num_classes, dtype, **kw) -> nn.Module``
-under the reference's names, every name of the JAX registry.
+under the reference's names, every name of the JAX registry, and the port's own
+``swin_b_w12_384``, which the JAX package lacks.
 """
 
 from typing import Callable, Dict, Optional
@@ -54,6 +55,7 @@ from .shufflenet import (
     shufflenet_v2_x2_0,
 )
 from .squeezenet import SqueezeNet, squeezenet1_0, squeezenet1_1
+from .swin import SwinTransformer, swin_b_w12_384
 from .vgg import VGG, vgg11, vgg11_bn, vgg13, vgg13_bn, vgg16, vgg16_bn, vgg19, vgg19_bn
 from .vit import ViT, vit_b16, vit_s16
 from .wideresnet import WRN, wrn28_10, wrn28_10_cifar10, wrn28_10_cifar100
@@ -82,6 +84,7 @@ MODEL_REGISTRY: Dict[str, Callable] = {
        for name in _efficientnet.__all__ if name != "EfficientNet"},
     "vit_b16": vit_b16,
     "vit_s16": vit_s16,
+    "swin_b_w12_384": swin_b_w12_384,
     # the rest of torchvision's zoo, in the JAX registry's order
     "mobilenet_v2": mobilenet_v2,
     "densenet121": densenet121,
@@ -113,9 +116,9 @@ MODEL_REGISTRY: Dict[str, Callable] = {
 }
 
 
-# Backbones built for one input resolution (their position embeddings); the
-# convolutional ones take any.
-FIXED_RESOLUTION = ("vit_b16", "vit_s16")
+# Backbones built for one input resolution (their position embeddings, Swin's
+# window grid); the convolutional ones take any.
+FIXED_RESOLUTION = ("vit_b16", "vit_s16", "swin_b_w12_384")
 
 
 def register_model(name: str, ctor: Optional[Callable] = None,
@@ -148,10 +151,10 @@ def get_model_choices():
 def get_model(arch: str, num_classes: int, dtype: torch.dtype = torch.float32,
               image_size: Optional[int] = None, **kw):
     """A backbone of the port by name (``MODEL_REGISTRY``); ``image_size``
-    builds the ViTs for that input resolution (the others ignore it), and
-    ``kw`` go to its constructor (``ln_impl``, ``attention_impl`` for a
-    ViT, ``transform_input`` for googlenet and inception_v3,
-    ``classic_head`` for a VGG)."""
+    builds the ViTs and Swin for that input resolution (the others ignore
+    it), and ``kw`` go to its constructor (``ln_impl`` for a ViT or Swin,
+    ``attention_impl`` for a ViT, ``transform_input`` for googlenet and
+    inception_v3, ``classic_head`` for a VGG)."""
     if arch not in MODEL_REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; the port has {get_model_choices()}")
     if image_size is not None and arch in FIXED_RESOLUTION:

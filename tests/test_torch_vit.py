@@ -288,7 +288,7 @@ def test_get_model_registry():
            "shufflenet_v2_x1_0", "shufflenet_v2_x1_5", "shufflenet_v2_x2_0"]
     assert sorted(tm.MODEL_REGISTRY) == sorted(
         resnets + effnets + zoo + ["WRN", "vit_b16", "vit_s16", "wrn28_10", "wrn28_10_cifar10",
-                                   "wrn28_10_cifar100"])
+                                   "wrn28_10_cifar100", "swin_b_w12_384"])
     with pytest.raises(KeyError, match="unknown arch"):
         tm.get_model("yournet18", 10)
     with pytest.raises(ValueError, match="ln_impl"):
